@@ -1,0 +1,1 @@
+"""configs of the PyTorch port (see repro_torch/__init__.py)."""
