@@ -10,8 +10,8 @@
   for ``sm_90a`` into a shared library with a plain C interface (one
   ``nvcc`` per source, all started together) and loads it with ``ctypes``.
   The build goes to ``_build/`` beside this file, keyed by a hash of the
-  source and flags, so an edited source rebuilds and an unchanged one is
-  loaded as it is.
+  source, every ``csrc/*.cuh`` header and the flags, so an edited source
+  or header rebuilds and an unchanged one is loaded as it is.
 """
 from __future__ import annotations
 
@@ -80,8 +80,11 @@ def _sources() -> dict[str, str]:
 
 def _target(name: str, src: str) -> str:
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 

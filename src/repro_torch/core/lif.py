@@ -83,10 +83,15 @@ def bn_rinv(var: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 def tdbn_apply(params: TdBNParams, state: TdBNState, x: torch.Tensor, *,
                threshold=THRESHOLD, alpha: float = 1.0, momentum: float = 0.9,
-               training: bool = True, eps: float = 1e-5):
+               training: bool = True, eps: float = 1e-5,
+               rinv: torch.Tensor | None = None):
     """tdBN over a (T, N, ..., C) volume, channels last. Returns
     (y, new_state): train mode normalises by this batch's statistics and
-    moves the running ones; eval mode uses the running ones."""
+    moves the running ones; eval mode uses the running ones, and takes
+    rsqrt(var + eps) from ``rinv`` when given — the row of the affine
+    bundle a compiled detector carries, so the unfused layers multiply by
+    the value the fused kernel does (and, for a bundle carried over from the
+    JAX package, by the value XLA rounded)."""
     reduce_dims = tuple(range(x.dim() - 1))
     if training:
         mean = x.mean(dim=reduce_dims)
@@ -99,6 +104,8 @@ def tdbn_apply(params: TdBNParams, state: TdBNState, x: torch.Tensor, *,
     else:
         mean, var = state.mean, state.var
         new_state = state
-    x_hat = (x - mean) * bn_rinv(var, eps)
+    if training or rinv is None:
+        rinv = bn_rinv(var, eps)
+    x_hat = (x - mean) * rinv
     y = (alpha * threshold) * x_hat * params.gamma + params.beta
     return y, new_state

@@ -11,12 +11,18 @@ Executors (``SNNDetConfig.conv_exec``):
 * ``dense`` — the oracle: block conv of the int8 weights as integer-valued
   floats, the FXP scale applied once after the accumulation. Used as the
   on-card cross-check and for calibration.
+* ``gated`` — the paper's shift-accumulate dataflow in plain PyTorch:
+  a live-tap im2col over the replicate-padded blocks, integer-valued f32
+  (exact), the scale applied once. Converted checkpoints name it in their
+  sidecar.
 * ``pallas`` — the kernel executor, registered under the JAX package's name
   so ``detector_config.json`` sidecars written there select it. Conv +
   tdBN + LIF layers run as one launch of the fused CUDA kernel
-  (:func:`run_fused`, called from ``snn_yolo``); the 1×1 head contracts in
-  place as a plain matmul. Any other unfused layer would need the
-  ``gated_one_to_all`` kernel, which is not ported yet.
+  (:func:`run_fused`, called from ``snn_yolo``). Where the fused chain is
+  off (``taps=`` recording, ``pool_drive``'s pooled layers) each conv is
+  one launch of the gated one-to-all CUDA kernel on the compressed
+  weights; the 1×1 spike layers (the head among them) contract in place
+  as a plain matmul.
 """
 from __future__ import annotations
 
@@ -28,6 +34,7 @@ import torch
 from repro_torch.core import block_conv as bc
 from repro_torch.core import quant
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.fused_pipeline import block_windows
 
 DEFAULT_KBLK = 128
 
@@ -41,7 +48,8 @@ class CompressedLayerPlan(NamedTuple):
     w_q: torch.Tensor  # (kh, kw, cin, kout) int8 dense — the dense oracle's operand
     in_bits: int  # 1 = binary spikes, 8 = u8 pixels (bit-serial encode)
     nnz: int
-    live: kops.LiveWeights  # the kernel's operand, decoded once on the device
+    live: kops.LiveWeights  # the fused kernel's operand, decoded once on the device
+    compressed: kops.PackedTensors  # maskp, vals, tap_any on the device (gated kernel)
 
     @property
     def dense_bytes(self) -> int:
@@ -107,6 +115,7 @@ def build_layer_plan(
         in_bits=in_bits,
         nnz=int(torch.count_nonzero(w_q)),
         live=kops.predecode(packed, w.device),
+        compressed=kops.packed_tensors(packed, w.device),
     )
 
 
@@ -188,23 +197,64 @@ def _exec_dense(x_t: torch.Tensor, lp: CompressedLayerPlan, cfg) -> torch.Tensor
     return y.reshape((t, n) + tuple(y.shape[1:]))
 
 
+def _blocked_gated(x: torch.Tensor, w: torch.Tensor, bh: int, bw: int,
+                   tap_alive: tuple) -> torch.Tensor:
+    """Gated one-to-all over independent replicate-padded blocks: every
+    live tap's window (the neighbour clamped into the pixel's block) is
+    stacked along a new axis and the (live taps · channels) contraction is
+    one matmul. Fully pruned taps (``tap_alive``, fixed at pack time) are
+    never visited. Integer-valued f32: every partial sum is an integer below
+    2^24, exact in any order (TF32 off, the PyTorch default for matmuls)."""
+    kh, kw, _, kout = w.shape
+    if kh == 1 and kw == 1:  # no taps to gate and no halo: contract in place
+        return x @ w[0, 0].float()
+    n, h, wd, c = x.shape
+    taps = tuple(tap_alive)
+    if not taps:  # every tap pruned away
+        return torch.zeros((n, h, wd, kout), dtype=torch.float32, device=x.device)
+    patches = block_windows(x, taps, kh=kh, kw=kw, bh=bh, bw=bw)  # (N, H, W, L, C)
+    w2 = torch.stack([w[t // kw, t % kw] for t in taps]).reshape(len(taps) * c, kout)
+    y = patches.reshape(-1, len(taps) * c) @ w2.float()
+    return y.reshape(n, h, wd, kout)
+
+
+@register_conv_executor("gated")
+def _exec_gated(x_t: torch.Tensor, lp: CompressedLayerPlan, cfg) -> torch.Tensor:
+    """The paper's shift-accumulate dataflow over the blocked layout, in
+    plain PyTorch. The int8 weights accumulate as integer-valued f32 and
+    the scale is applied once to the final integer, so it is bit-equal to
+    the other executors. The 8-bit encode layer convolves its u8 pixel
+    values, the exact fold of its bit-serial planes."""
+    t, n = x_t.shape[:2]
+    x = x_t.reshape((t * n,) + tuple(x_t.shape[2:]))
+    x = (quantize_input_u8(x) if lp.in_bits == 8 else x).float()
+    bh, bw = cfg.block_hw
+    y = _blocked_gated(x, lp.w_q, bh, bw, lp.packed.tap_alive) * _effective_scale(lp)
+    return y.reshape((t, n) + tuple(y.shape[1:]))
+
+
 @register_conv_executor("pallas")
 def _exec_kernel(x_t: torch.Tensor, lp: CompressedLayerPlan, cfg) -> torch.Tensor:
-    """The kernel executor's unfused conv. Only the pointwise spike layer
-    (the detection head) runs here: no taps to gate and no halo, so it is
-    one channel contraction in place — integer-valued f32, exact. Fused
-    layers never reach it (``snn_yolo`` calls :func:`run_fused`)."""
+    """The kernel executor's unfused conv, where the fused chain is off.
+    Time folds into the batch, so a layer is one launch of the gated one-
+    to-all kernel on the compressed weights; the encode layer hands it its
+    u8 pixel values (the exact fold of the JAX executor's 8 bit-serial
+    planes, still one launch). Pointwise spike layers (the detection head
+    among them) have no taps to gate and no halo: one channel contraction
+    in place, integer-valued f32, exact. Fused layers never reach here
+    (``snn_yolo`` calls :func:`run_fused`)."""
+    t, n = x_t.shape[:2]
+    x = x_t.reshape((t * n,) + tuple(x_t.shape[2:]))
     kh, kw = lp.w_q.shape[0], lp.w_q.shape[1]
     if lp.in_bits != 8 and kh == 1 and kw == 1:
-        t, n = x_t.shape[:2]
-        y = (x_t.reshape((t * n,) + tuple(x_t.shape[2:])).float() @ lp.w_q[0, 0].float())
-        y = y * lp.scale
-        return y.reshape((t, n) + tuple(y.shape[1:]))
-    raise NotImplementedError(
-        f"layer {lp.name!r} cannot run fused here (train mode, taps= or "
-        "pool_drive): the unfused kernel executor needs the gated_one_to_all "
-        "kernel, which is still to port (ROADMAP.md, queue 2)"
-    )
+        y = (x.float() @ lp.w_q[0, 0].float()) * lp.scale
+    else:
+        if lp.in_bits == 8:
+            x = quantize_input_u8(x)
+        bh, bw = cfg.block_hw
+        acc = kops.gated_conv(x, lp.packed, bh=bh, bw=bw, weights=lp.compressed)
+        y = acc.float() * _effective_scale(lp)
+    return y.reshape((t, n) + tuple(y.shape[1:]))
 
 
 def precompute_affines(plan: DetectorPlan, params, bn_state, cfg) -> dict:

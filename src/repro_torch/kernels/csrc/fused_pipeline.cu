@@ -1,6 +1,6 @@
 // Fused layer pipeline for Hopper (sm_90a): block conv over the live taps
-// -> FXP rescale -> tdBN inference affine -> LIF over t_out <= 4 steps,
-// the membrane kept in registers across the time loop.
+// -> FXP rescale -> tdBN inference affine -> LIF over t_out steps, the
+// membrane kept in registers across the time loop.
 //
 // Replaces the TPU kernel src/repro/kernels/fused_pipeline.py
 // (fused_pipeline_pallas, body _kernel) in both its weight modes:
@@ -34,7 +34,10 @@
 //    layer's u8 pixels, the exact fold of its 8 bit-serial planes) times
 //    int8 weights into int32 -- exact;
 //  * mixed time: t_in == 1 computes one conv drive and reuses it for
-//    every LIF step;
+//    every LIF step; t_in == t_out <= 4 keeps every step's accumulator in
+//    registers, and t_in == t_out > 4 streams the steps (conv, drive, LIF
+//    step, spikes for step t, then t+1), so T has no cap, as in the TPU
+//    kernel, which unrolls any T;
 //  * the float chain op for op, every product rounded on its own
 //    (__fmul_rn/__fadd_rn/__fsub_rn, and the file is built -fmad=false):
 //      y = float(acc)*scale; xh = (y-mean)*rinv; d = (bn_scale*xh)*gamma+beta
@@ -54,6 +57,8 @@
 //  mem    (N, H, W, Kout)      f32 final membrane
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace {
 
@@ -83,31 +88,20 @@ struct Params {
   int kblk, vpad, taps_total;
 };
 
-// unsigned bytes of a (inputs) times signed bytes of b (weights), summed into c
-__device__ __forceinline__ int dp4a_us(uint32_t a, int b, int c) {
-  int d;
-  asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
-}
-
 __device__ __forceinline__ float elem(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-// The whole pipeline for one pixel and output channels k0..k0+3. ``w`` holds
-// rows of ``kq`` int4 per (live tap, channel quad); this thread's group sits
-// at int4 column ``wcol`` of each row. SMEM_W: ``w`` is in shared memory.
+// The conv of TIN consecutive time steps from step t0, for one pixel and
+// output channels k0..k0+3, into acc. ``w`` holds rows of ``kq`` int4 per
+// (live tap, channel quad); this thread's group sits at int4 column ``wcol``
+// of each row. SMEM_W: ``w`` is in shared memory.
 template <int TIN, bool SMEM_W>
-__device__ __forceinline__ void pixel_pipeline(const Params& p, const int4* w,
-                                               int kq, int wcol, long long pix,
-                                               int k0) {
-  const int wi = (int)(pix % p.w);
-  const int hi = (int)((pix / p.w) % p.h);
-  const long long ni = pix / ((long long)p.w * p.h);
+__device__ __forceinline__ void conv_acc(const Params& p, const int4* w, int kq,
+                                         int wcol, long long ni, int hi, int wi,
+                                         int t0, int (&acc)[TIN][4]) {
   const int h_lo = (hi / p.bh) * p.bh, w_lo = (wi / p.bw) * p.bw;
   const int h_hi = h_lo + p.bh - 1, w_hi = w_lo + p.bw - 1;
-
-  int acc[TIN][4];
 #pragma unroll
   for (int t = 0; t < TIN; ++t)
 #pragma unroll
@@ -118,7 +112,7 @@ __device__ __forceinline__ void pixel_pipeline(const Params& p, const int4* w,
     const int tap = p.taps[l];
     const int hh = min(max(hi + tap / p.kw - p.pad, h_lo), h_hi);
     const int ww = min(max(wi + tap % p.kw - p.pad, w_lo), w_hi);
-    const uint32_t* xp = p.x + ((ni * p.h + hh) * p.w + ww) * p.c4;
+    const uint32_t* xp = p.x + t0 * t_stride + ((ni * p.h + hh) * p.w + ww) * p.c4;
     const int4* wp = w + (long long)l * p.c4 * kq + wcol;
     for (int cq = 0; cq < p.c4; ++cq) {
       const int4 wv = SMEM_W ? wp[cq * kq] : __ldg(wp + (long long)cq * kq);
@@ -132,25 +126,71 @@ __device__ __forceinline__ void pixel_pipeline(const Params& p, const int4* w,
       }
     }
   }
+}
 
-  const float4 sc = __ldg(reinterpret_cast<const float4*>(p.affine + 0 * p.kp + k0));
-  const float4 mu = __ldg(reinterpret_cast<const float4*>(p.affine + 1 * p.kp + k0));
-  const float4 ri = __ldg(reinterpret_cast<const float4*>(p.affine + 2 * p.kp + k0));
-  const float4 ga = __ldg(reinterpret_cast<const float4*>(p.affine + 3 * p.kp + k0));
-  const float4 be = __ldg(reinterpret_cast<const float4*>(p.affine + 4 * p.kp + k0));
-  float drive[TIN][4];
-#pragma unroll
-  for (int t = 0; t < TIN; ++t)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float y = __fmul_rn(__int2float_rn(acc[t][j]), elem(sc, j));
-      const float xh = __fmul_rn(__fsub_rn(y, elem(mu, j)), elem(ri, j));
-      drive[t][j] = __fadd_rn(
-          __fmul_rn(__fmul_rn(p.bn_scale, xh), elem(ga, j)), elem(be, j));
-    }
+// The layer's five affine rows for channels k0..k0+3.
+struct Affine4 {
+  float4 sc, mu, ri, ga, be;
+};
 
+__device__ __forceinline__ Affine4 load_affine(const Params& p, int k0) {
+  const float4* a = reinterpret_cast<const float4*>(p.affine + k0);
+  const int row = p.kp / 4;
+  return {__ldg(a), __ldg(a + row), __ldg(a + 2 * row), __ldg(a + 3 * row),
+          __ldg(a + 4 * row)};
+}
+
+// FXP rescale and tdBN affine: y = float(acc)*scale; xh = (y-mean)*rinv;
+// d = (bn_scale*xh)*gamma + beta, each op rounded on its own.
+__device__ __forceinline__ void to_drive(const Params& p, const Affine4& a,
+                                         const int (&acc)[4], float (&d)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float y = __fmul_rn(__int2float_rn(acc[j]), elem(a.sc, j));
+    const float xh = __fmul_rn(__fsub_rn(y, elem(a.mu, j)), elem(a.ri, j));
+    d[j] = __fadd_rn(__fmul_rn(__fmul_rn(p.bn_scale, xh), elem(a.ga, j)), elem(a.be, j));
+  }
+}
+
+// One LIF step of channels k0..k0+3 (v = v*leak + d, fire, reset), its
+// spikes written to step t of the output.
+__device__ __forceinline__ void lif_step(const Params& p, float (&v)[4],
+                                         const float (&d)[4], int t,
+                                         long long base, int k0, bool full) {
+  uint32_t word = 0;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    v[j] = __fadd_rn(__fmul_rn(v[j], p.leak), d[j]);
+    const bool s = v[j] >= p.threshold;
+    if (s) v[j] = p.soft_reset ? __fsub_rn(v[j], p.threshold) : 0.0f;
+    word |= (uint32_t)s << (8 * j);
+  }
+  uint8_t* out = p.spk + (long long)t * p.npix * p.kout + base;
+  if (full) {
+    *reinterpret_cast<uint32_t*>(out) = word;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (k0 + j < p.kout) out[j] = (word >> (8 * j)) & 1;
+  }
+}
+
+// The whole pipeline for one pixel and output channels k0..k0+3.
+//  TIN = 1:     one conv drive feeds every one of the t_out LIF steps;
+//  TIN = 2..4:  t_in == t_out == TIN, every step's accumulator in registers;
+//  TIN = 0:     t_in == t_out > 4, streamed: step t's conv, drive, LIF step
+//               and spikes, one step at a time (any T; the weights are
+//               re-read per step, the membrane stays in registers).
+template <int TIN, bool SMEM_W>
+__device__ __forceinline__ void pixel_pipeline(const Params& p, const int4* w,
+                                               int kq, int wcol, long long pix,
+                                               int k0) {
+  const int wi = (int)(pix % p.w);
+  const int hi = (int)((pix / p.w) % p.h);
+  const long long ni = pix / ((long long)p.w * p.h);
   const bool full = (p.kout % 4 == 0);  // whole 4-channel groups: vector I/O
   const long long base = pix * p.kout + k0;
+
   float v[4];
   if (p.v0 == nullptr) {
 #pragma unroll
@@ -163,25 +203,27 @@ __device__ __forceinline__ void pixel_pipeline(const Params& p, const int4* w,
     for (int j = 0; j < 4; ++j) v[j] = (k0 + j < p.kout) ? p.v0[base + j] : 0.0f;
   }
 
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    if (t >= p.t_out) break;
-    const int ts = (TIN == 1) ? 0 : (t < TIN ? t : TIN - 1);
-    uint32_t word = 0;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      v[j] = __fadd_rn(__fmul_rn(v[j], p.leak), drive[ts][j]);
-      const bool s = v[j] >= p.threshold;
-      if (s) v[j] = p.soft_reset ? __fsub_rn(v[j], p.threshold) : 0.0f;
-      word |= (uint32_t)s << (8 * j);
+  if constexpr (TIN == 0) {
+    const Affine4 a = load_affine(p, k0);
+    for (int t = 0; t < p.t_out; ++t) {
+      int acc[1][4];
+      float d[4];
+      conv_acc<1, SMEM_W>(p, w, kq, wcol, ni, hi, wi, t, acc);
+      to_drive(p, a, acc[0], d);
+      lif_step(p, v, d, t, base, k0, full);
     }
-    uint8_t* out = p.spk + (long long)t * p.npix * p.kout + base;
-    if (full) {
-      *reinterpret_cast<uint32_t*>(out) = word;
+  } else {
+    int acc[TIN][4];
+    float d[TIN][4];
+    conv_acc<TIN, SMEM_W>(p, w, kq, wcol, ni, hi, wi, 0, acc);
+    const Affine4 a = load_affine(p, k0);
+#pragma unroll
+    for (int t = 0; t < TIN; ++t) to_drive(p, a, acc[t], d[t]);
+    if constexpr (TIN == 1) {
+      for (int t = 0; t < p.t_out; ++t) lif_step(p, v, d[0], t, base, k0, full);
     } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (k0 + j < p.kout) out[j] = (word >> (8 * j)) & 1;
+      for (int t = 0; t < TIN; ++t) lif_step(p, v, d[t], t, base, k0, full);
     }
   }
   if (full) {
@@ -221,44 +263,10 @@ __global__ void __launch_bounds__(kThreads) fused_pipeline_packed_kernel(const P
   const int kb = chunk0 / p.kblk;
   const int kin0 = chunk0 - kb * p.kblk;  // the slice's offset in its K-block
   const uint8_t* mk = p.maskp + (long long)kb * p.taps_total * c8 * p.kblk;
-  const int nrows = p.taps_total * c;
 
-  // 1. set bits in each (tap, channel) row of the K-block
-  for (int r = threadIdx.x; r < nrows; r += kThreads) {
-    const int tp = r / c, ch = r % c;
-    const uint32_t* row =
-        reinterpret_cast<const uint32_t*>(mk + ((long long)tp * c8 + ch / 8) * p.kblk);
-    int n = 0;
-    for (int q = 0; q < p.kblk / 4; ++q)
-      n += __popc((__ldg(row + q) >> (ch & 7)) & 0x01010101u);
-    rows[r] = n;
-  }
-  __syncthreads();
-  // 2. exclusive prefix over the rows, in (tap, channel) order: each thread
-  //    sums a contiguous segment, thread 0 scans the segment sums
-  const int seg = (nrows + kThreads - 1) / kThreads;
-  const int r0 = min((int)threadIdx.x * seg, nrows), r1 = min(r0 + seg, nrows);
-  int run = 0;
-  for (int r = r0; r < r1; ++r) run += rows[r];
-  partial[threadIdx.x] = run;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int i = 0; i < kThreads; ++i) {
-      const int v = partial[i];
-      partial[i] = total;
-      total += v;
-    }
-  }
-  __syncthreads();
-  run = partial[threadIdx.x];
-  for (int r = r0; r < r1; ++r) {
-    const int v = rows[r];
-    rows[r] = run;
-    run += v;
-  }
-  __syncthreads();
-  // 3. decode the slice: a set bit's value index is its rank in the
+  // 1. the value index of every (tap, channel) row's first nonzero
+  kblock_row_ranks<kThreads>(mk, p.taps_total, c, p.kblk, rows, partial);
+  // 2. decode the slice: a set bit's value index is its rank in the
   //    K-block's (tap, channel, k) order
   const int8_t* vk = p.vals + (long long)kb * p.vpad;
   for (int e = threadIdx.x; e < p.n_live * c; e += kThreads) {
@@ -277,7 +285,7 @@ __global__ void __launch_bounds__(kThreads) fused_pipeline_packed_kernel(const P
     }
   }
   __syncthreads();
-  // 4. the pipeline over this block's pixel tiles, two 4-channel groups each
+  // 3. the pipeline over this block's pixel tiles, two 4-channel groups each
   const int g = threadIdx.x & 1;
   const int k0 = chunk0 + 4 * g;
   const int ppb = kThreads / 2;
@@ -294,8 +302,7 @@ bool fill_params(Params& p, const void* x, const void* affine, const void* v0,
                  int c, int kout, int kp, int kh, int kw, int bh, int bw,
                  const int* taps, int n_live, float bn_scale, float threshold,
                  float leak, float v_init, int soft_reset) {
-  if (t_in < 1 || t_in > 4 || t_out < 1 || t_out > 4 ||
-      (t_in != 1 && t_in != t_out) || n_live < 0 || n_live > kMaxTaps ||
+  if (t_in < 1 || t_out < 1 || (t_in != 1 && t_in != t_out) || n_live < 0 || n_live > kMaxTaps ||
       c % 4 != 0 || kp % 4 != 0 || kout > kp || kh != kw || kh % 2 != 1 ||
       bh < 1 || bw < 1 || h % bh != 0 || w_ % bw != 0)
     return false;
@@ -356,7 +363,8 @@ extern "C" int fused_pipeline_launch(
     case 1: fused_pipeline_kernel<1><<<grid, kThreads, 0, s>>>(p); break;
     case 2: fused_pipeline_kernel<2><<<grid, kThreads, 0, s>>>(p); break;
     case 3: fused_pipeline_kernel<3><<<grid, kThreads, 0, s>>>(p); break;
-    default: fused_pipeline_kernel<4><<<grid, kThreads, 0, s>>>(p); break;
+    case 4: fused_pipeline_kernel<4><<<grid, kThreads, 0, s>>>(p); break;
+    default: fused_pipeline_kernel<0><<<grid, kThreads, 0, s>>>(p); break;
   }
   return (int)cudaGetLastError();
 }
@@ -407,6 +415,7 @@ extern "C" int fused_pipeline_packed_launch(
     case 1: return launch_packed<1>(p, grid, smem, s);
     case 2: return launch_packed<2>(p, grid, smem, s);
     case 3: return launch_packed<3>(p, grid, smem, s);
-    default: return launch_packed<4>(p, grid, smem, s);
+    case 4: return launch_packed<4>(p, grid, smem, s);
+    default: return launch_packed<0>(p, grid, smem, s);
   }
 }

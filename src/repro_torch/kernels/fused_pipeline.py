@@ -109,13 +109,13 @@ def fused_pipeline_reference(
     return torch.stack(spikes).to(torch.uint8), v
 
 
-def decode_packed(maskp: torch.Tensor, vals: torch.Tensor, taps: tuple) -> torch.Tensor:
-    """The plain PyTorch version of the packed mode's in-kernel decode:
-    bitmask-packed weights (maskp (KB, kh*kw, C/8, KBLK) uint8, vals
-    (KB, VPAD) int8) → the live taps' dense weights in the kernel's
-    (L, C/4, KB*KBLK, 4) layout. A set bit's value is ``vals[kb, rank]``,
-    its rank counted in the K-block's (tap, channel, k) order — the JAX
-    kernel's cumsum-and-gather, index clipped to VPAD."""
+def decode_dense(maskp: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of the in-kernel bitmask decode:
+    bitmask-packed weights (maskp (KB, taps, C/8, KBLK) uint8, vals
+    (KB, VPAD) int8) → dense int8 weights (taps, C, KB*KBLK). A set bit's
+    value is ``vals[kb, rank]``, its rank counted in the K-block's
+    (tap, channel, k) order — the JAX kernels' cumsum-and-gather, index
+    clipped to VPAD."""
     kb_total, taps_total, c8, kblk = maskp.shape
     shifts = torch.arange(8, dtype=torch.uint8, device=maskp.device)
     bits = (maskp[:, :, :, None, :] >> shifts[:, None]) & 1  # (KB, taps, C8, 8, KBLK)
@@ -123,9 +123,16 @@ def decode_packed(maskp: torch.Tensor, vals: torch.Tensor, taps: tuple) -> torch
     idx = (flat.cumsum(dim=1) - 1).clamp(0, vals.shape[1] - 1)
     dense = torch.where(flat > 0, torch.gather(vals.long(), 1, idx), 0)
     dense = dense.reshape(kb_total, taps_total, c8 * 8, kblk)
-    dense = dense.permute(1, 2, 0, 3).reshape(taps_total, c8 * 8, kb_total * kblk)
-    live = dense[list(taps)].reshape(len(taps), c8 * 2, 4, kb_total * kblk)
-    return live.permute(0, 1, 3, 2).contiguous().to(torch.int8)
+    return dense.permute(1, 2, 0, 3).reshape(taps_total, c8 * 8, kb_total * kblk).to(torch.int8)
+
+
+def decode_packed(maskp: torch.Tensor, vals: torch.Tensor, taps: tuple) -> torch.Tensor:
+    """:func:`decode_dense`, then the live taps in the packed mode's
+    (L, C/4, KB*KBLK, 4) layout."""
+    dense = decode_dense(maskp, vals)
+    _, c, kp = dense.shape
+    live = dense[list(taps)].reshape(len(taps), c // 4, 4, kp)
+    return live.permute(0, 1, 3, 2).contiguous()
 
 
 def _check(x, taps, affine, v0, kp, kout, kh, kw, bh, bw, t_out, reset, weights):
@@ -143,8 +150,8 @@ def _check(x, taps, affine, v0, kp, kout, kh, kw, bh, bw, t_out, reset, weights)
         raise ValueError(f"affine must be ({AFFINE_ROWS}, {kp}) f32, got {tuple(affine.shape)}")
     if v0 is not None and (v0.dtype != torch.float32 or tuple(v0.shape) != (n, h, wd, kout)):
         raise ValueError(f"v0 must be ({n}, {h}, {wd}, {kout}) f32, got {tuple(v0.shape)}")
-    if not (1 <= t_out <= 4 and t_in in (1, t_out)):
-        raise ValueError(f"t_in={t_in}, t_out={t_out}: need t_out <= 4 and t_in in (1, t_out)")
+    if not (t_out >= 1 and t_in in (1, t_out)):
+        raise ValueError(f"t_in={t_in}, t_out={t_out}: need t_out >= 1 and t_in in (1, t_out)")
     if kh != kw or kh % 2 != 1 or h % bh or wd % bw:
         raise ValueError(f"kernel {kh}x{kw} / block ({bh},{bw}) do not fit ({h},{wd})")
     if reset not in ("hard", "soft"):

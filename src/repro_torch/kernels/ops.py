@@ -1,7 +1,8 @@
 """Host side of the kernels: bitmask packing of conv weights, the decode
 into the kernel's dense live-tap layout, the per-layer affine bundle, and
-the layer entry point :func:`fused_conv_bn_lif` (predecoded weights, or
-the packed ones for the kernel to decode).
+the layer entry points :func:`fused_conv_bn_lif` (predecoded weights, or
+the packed ones for the kernel to decode) and :func:`gated_conv` (the
+unfused conv on the packed weights).
 
 Counterpart of ``repro/kernels/ops.py``. Packing is numpy and byte-equal to
 the JAX package's (``maskp``, ``vals``, ``tap_any``, ``tap_alive``): the
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.core import lif
 from repro_torch.kernels import fused_pipeline as fp
+from repro_torch.kernels import gated_one_to_all as g2a
 
 
 class PackedConvWeights(NamedTuple):
@@ -43,6 +45,23 @@ class PackedConvWeights(NamedTuple):
     def kp(self) -> int:
         """Output channels padded to whole K-blocks."""
         return self.maskp.shape[0] * self.kblk
+
+
+class PackedTensors(NamedTuple):
+    """A packed layer's arrays on a device, as the kernels take them."""
+
+    maskp: torch.Tensor  # (KB, taps, C8, KBLK) uint8
+    vals: torch.Tensor  # (KB, VPAD) int8
+    tap_any: torch.Tensor  # (KB, taps) int32
+
+
+def packed_tensors(pw: PackedConvWeights, device) -> PackedTensors:
+    """Copy a packed layer's maskp, vals and tap_any to ``device`` (a plan
+    does this once per layer)."""
+    return PackedTensors(
+        *(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+          for a in (pw.maskp, pw.vals, pw.tap_any))
+    )
 
 
 class LiveWeights(NamedTuple):
@@ -236,3 +255,33 @@ def fused_conv_bn_lif(
     if weights is None:
         weights = predecode(pw, x_t.device)
     return fp.fused_pipeline(x_t, weights.w, weights.taps, affine, v0, **kwargs)
+
+
+def gated_conv(
+    x: torch.Tensor,  # (N, H, W, C) uint8 spikes {0,1} or u8 pixels
+    pw: PackedConvWeights,
+    *,
+    bh: int,
+    bw: int,
+    weights: PackedTensors | None = None,
+) -> torch.Tensor:
+    """Sparse-compressed block convolution, NHWC → NHWK int32, in one
+    launch of the gated one-to-all kernel on the packed weights (decoded
+    inside it). The leading axis is a plain batch: callers fold time steps
+    into it. ``weights``: the layer's packed arrays on x's device (a plan
+    holds them); copied from ``pw`` here when not given. Channels are
+    zero-padded up to ``pw.cin`` (zero inputs times zero weights: exact).
+    The encode layer passes its u8 pixel values — the exact fold of its 8
+    bit-serial planes."""
+    c = x.shape[-1]
+    if c > pw.cin:
+        raise ValueError(f"input has {c} channels, weights {pw.cin}")
+    if c < pw.cin:
+        x = torch.nn.functional.pad(x, (0, pw.cin - c))
+    x = x.to(torch.uint8).contiguous()
+    if weights is None:
+        weights = packed_tensors(pw, x.device)
+    return g2a.gated_one_to_all(
+        x, weights.maskp, weights.vals, weights.tap_any,
+        kout=pw.kout, kh=pw.kh, kw=pw.kw, bh=bh, bw=bw,
+    )

@@ -10,8 +10,9 @@ names, parameter shapes and config fields:
 
 Tensors are NHWC with time leading: (T, N, H, W, C). Parameters are a
 dict {layer: {"w", "gamma", "beta"}}; tdBN state {layer: {"mean", "var",
-"count"}}. Still to port: the rate-gated pool, ``taps=``, ``pool_drive``
-and the ann/qnn/bnn modes (they raise).
+"count"}}. The ANN→SNN conversion's operating point runs here too: rate
+encoding, the rate-gated pool, ``pool_drive`` and ``taps=``. Still to
+port: the ann/qnn/bnn modes (they raise).
 """
 from __future__ import annotations
 
@@ -111,6 +112,22 @@ def layer_shapes(cfg: SNNDetConfig) -> dict:
     return out
 
 
+def membrane_hw(cfg: SNNDetConfig) -> dict:
+    """{layer: (H, W)} of each layer's LIF membrane: its output map, halved
+    for the layers whose pool ``pool_drive`` moves before the LIF (encode,
+    conv_block and the pooled stages' agg) — the shapes of a session's
+    state, as the JAX package derives them from the step itself."""
+    hw = layer_hw(cfg)
+    if cfg.pool_drive:
+        pooled = ["encode", "conv_block"] + [
+            f"stage{i}/agg" for i in range(len(cfg.stage_channels))
+            if i < cfg.pooled_stages - 1
+        ]
+        for name in pooled:
+            hw[name] = (hw[name][0] // 2, hw[name][1] // 2)
+    return hw
+
+
 def layer_hw(cfg: SNNDetConfig) -> dict:
     """{layer: (H, W)} of each layer's output (= input) feature map."""
     h, w = cfg.input_hw
@@ -205,23 +222,34 @@ def _conv_t(x_t, layer_p, cfg: SNNDetConfig, *, name=None, plan=None):
     return y.reshape((t, n) + tuple(y.shape[1:]))
 
 
-def _tdbn(x_t, layer_p, layer_s, cfg, train):
+def _tdbn(x_t, layer_p, layer_s, cfg, train, rinv=None):
     params = lifm.TdBNParams(gamma=layer_p["gamma"], beta=layer_p["beta"])
     state = lifm.TdBNState(mean=layer_s["mean"], var=layer_s["var"], count=layer_s["count"])
-    y, new = lifm.tdbn_apply(params, state, x_t, threshold=cfg.threshold, training=train)
+    y, new = lifm.tdbn_apply(params, state, x_t, threshold=cfg.threshold, training=train,
+                             rinv=rinv)
     return y, {"mean": new.mean, "var": new.var, "count": new.count}
 
 
 def _conv_bn_act(x_t, layer_p, layer_s, cfg, train, *, out_t=None, name=None,
-                 plan=None, v0=None, affine=None):
+                 plan=None, v0=None, affine=None, taps=None, pool=False):
     """Conv → tdBN → LIF. Returns (spikes, new_bn_state, final membrane).
 
     Mixed time steps: with out_t > x_t.shape[0] == 1 the conv runs once and
     drives every LIF step. At eval on the kernel executor the whole chain
-    is one launch of the fused kernel (``plan.run_fused``)."""
+    is one launch of the fused kernel (``plan.run_fused``), unless the
+    drive is recorded (``taps``: the tdBN output, before any pool, under
+    the layer's name) or pooled before the LIF.
+
+    ``pool``: this layer's output feeds a 2×2 pool. With ``cfg.pool_drive``
+    the pool runs here, a max-pool of the tdBN drive before the LIF
+    (whatever ``pool_mode`` is), and the caller skips its own pool. In eval
+    mode the tdBN takes rsqrt(var + eps) from ``affine`` when given."""
     t_out = out_t or x_t.shape[0]
+    pool_inside = pool and cfg.pool_drive
     if (
         not train
+        and taps is None
+        and not pool_inside
         and cfg.conv_exec == "pallas"
         and plan is not None
         and name in plan.layers
@@ -239,7 +267,12 @@ def _conv_bn_act(x_t, layer_p, layer_s, cfg, train, *, out_t=None, name=None,
         if y_t.shape[0] != 1:
             raise ValueError("can only broadcast a conv drive from T=1")
         y_t = y_t.expand((t_out,) + tuple(y_t.shape[1:]))
-    y_t, new_s = _tdbn(y_t, layer_p, layer_s, cfg, train)
+    rinv = None if train or affine is None else affine[2, : y_t.shape[-1]]
+    y_t, new_s = _tdbn(y_t, layer_p, layer_s, cfg, train, rinv=rinv)
+    if taps is not None and name is not None:
+        taps[name] = y_t
+    if pool_inside:
+        y_t = _maxpool_t(y_t)
     if v0 is None and cfg.v_init:
         v0 = torch.full(tuple(y_t.shape[1:]), cfg.v_init, dtype=y_t.dtype, device=y_t.device)
     init = None if v0 is None else lifm.LIFState(v=v0)
@@ -256,24 +289,34 @@ def _maxpool_t(x_t):
     return x_t.reshape(t, n, h // 2, 2, w // 2, 2, c).amax(dim=(3, 5))
 
 
+def _rate_gated_pool_t(s_t):
+    """2×2 rate-gated spike pool (Rueckauer et al. 2017): each window emits
+    the current spike of the input with the highest cumulative spike count,
+    so the pooled rate tracks the largest input rate where the OR gate
+    overestimates it. The max-reduce key is 2·count + spike in f32 (exact:
+    count ≤ T ≪ 2^23), so ties go to a spiking input."""
+    s = s_t.float()
+    key = torch.cumsum(s, dim=0) * 2.0 + s
+    return torch.remainder(_maxpool_t(key), 2.0).to(s_t.dtype)
+
+
+def _pool_t(s_t, cfg: SNNDetConfig):
+    """Pool a spike volume per ``cfg.pool_mode``: "rate" gates by rate,
+    anything else is the OR-gate max-pool."""
+    if cfg.pool_mode == "rate":
+        return _rate_gated_pool_t(s_t)
+    return _maxpool_t(s_t)
+
+
 def _check_supported(cfg: SNNDetConfig) -> None:
-    missing = []
     if cfg.mode != "snn":
-        missing.append(f"mode={cfg.mode!r}")
-    if cfg.pool_mode != "or":
-        missing.append(f"pool_mode={cfg.pool_mode!r}")
-    if cfg.pool_drive:
-        missing.append("pool_drive=True")
-    if cfg.head_readout not in ("mean", "final"):
-        missing.append(f"head_readout={cfg.head_readout!r}")
-    if missing:
         raise NotImplementedError(
-            f"{', '.join(missing)} is not ported yet (ROADMAP.md, queue 1)"
+            f"mode={cfg.mode!r} is not ported yet (ROADMAP.md, queue 1)"
         )
 
 
 def forward(params, bn_state, images, cfg: SNNDetConfig, *, train: bool = False,
-            plan=None, membrane=None, affines=None):
+            plan=None, membrane=None, affines=None, taps=None):
     """images: (N, H, W, 3) in [0, 1]. Returns (head, new_bn_state, aux).
 
     head: (N, gh, gw, anchors, 5 + classes) raw predictions.
@@ -284,7 +327,12 @@ def forward(params, bn_state, images, cfg: SNNDetConfig, *, train: bool = False,
     ``plan``: the compiled :class:`~repro_torch.core.plan.DetectorPlan`,
     required for any executor but ``dense``. ``membrane``: {layer: v}
     warm start (cold where missing). ``affines``: {layer: (5, Kp) bundle}
-    precomputed for the fused kernel."""
+    precomputed for the fused kernel (and read for rsqrt(var + eps) by the
+    unfused layers). ``taps``: a dict that, when given, receives every
+    layer's tdBN output (the per-step LIF drive, (T, N, H, W, C), before
+    any pool) under its name plus the raw head conv under "head" — the
+    conversion front-end's probe; it keeps every layer off the fused
+    kernel."""
     _check_supported(cfg)
     if cfg.conv_exec != "dense" and not cfg.weight_bits:
         raise ValueError(
@@ -308,38 +356,45 @@ def forward(params, bn_state, images, cfg: SNNDetConfig, *, train: bool = False,
     new_mem: dict[str, Any] = {}
     aux: dict[str, Any] = {"spikes": {}, "membrane": new_mem}
 
-    def cba(x_in, lname, out_t=None):
+    def cba(x_in, lname, out_t=None, pool=False):
         s, new_state[lname], new_mem[lname] = _conv_bn_act(
             x_in, params[lname], bn_state[lname], cfg, train, out_t=out_t,
             name=lname, plan=plan, v0=mem.get(lname), affine=aff.get(lname),
+            taps=taps, pool=pool,
         )
         return s
 
+    pd = cfg.pool_drive  # the pooled layers pool their drive inside
     x_t = images.float()[None]  # the encode layer sees the raw image once
-    s_t = cba(x_t, "encode", out_t=full_t if cfg.rate_encode else None)
+    s_t = cba(x_t, "encode", out_t=full_t if cfg.rate_encode else None, pool=True)
     aux["spikes"]["encode"] = s_t
-    s_t = _maxpool_t(s_t)
+    if not pd:
+        s_t = _pool_t(s_t, cfg)
 
     out_t = full_t if cfg.mixed_time else s_t.shape[0]
     if not cfg.mixed_time:
         s_t = s_t.expand((full_t,) + tuple(s_t.shape[1:]))
         out_t = full_t
-    s_t = cba(s_t, "conv_block", out_t=out_t)
+    s_t = cba(s_t, "conv_block", out_t=out_t, pool=True)
     aux["spikes"]["conv_block"] = s_t
-    s_t = _maxpool_t(s_t)
+    if not pd:
+        s_t = _pool_t(s_t, cfg)
 
     for i in range(len(cfg.stage_channels)):
         name = f"stage{i}"
+        pooled = i < cfg.pooled_stages - 1
         short = cba(s_t, f"{name}/shortcut")
         m = cba(s_t, f"{name}/main_in")
         m = cba(m, f"{name}/main_a")
         m = cba(m, f"{name}/main_b")
-        s_t = cba(torch.cat([m, short], dim=-1), f"{name}/agg")
+        s_t = cba(torch.cat([m, short], dim=-1), f"{name}/agg", pool=pooled)
         aux["spikes"][name] = s_t
-        if i < cfg.pooled_stages - 1:
-            s_t = _maxpool_t(s_t)
+        if pooled and not pd:
+            s_t = _pool_t(s_t, cfg)
 
     y_t = _conv_t(s_t, params["head"], cfg, name="head", plan=plan)
+    if taps is not None:
+        taps["head"] = y_t
     head, new_mem["head"] = lifm.membrane_readout(
         y_t, leak=cfg.leak, v0=mem.get("head"), return_final=True
     )

@@ -1,7 +1,8 @@
 """Compile-once detector serving: the handle and the streaming session.
 
 Counterpart of ``repro/serve/detector.py`` (``CompiledDetector``,
-``DetectorSession``, ``demo_weights``, ``synth_streams``). Still to port:
+``DetectorSession``, ``demo_weights``, ``synth_streams``), for every
+executor (``dense``, ``gated``, ``pallas``). Still to port:
 ``masked_step`` and ``DetectorEngineCore`` (ROADMAP.md, queue 1).
 
 * :class:`CompiledDetector` builds the compression plan and the fused
@@ -112,7 +113,9 @@ class CompiledDetector:
         self._compiled = _fingerprint(_weight_leaves(params))
         self._affines = None
         self._affine_compiled: tuple = ()
-        if self._plan is not None and cfg.conv_exec == "pallas":
+        # the kernel executor precomputes its bundles; a bundle handed in is
+        # used by every executor (its rsqrt row feeds the unfused tdBN too)
+        if self._plan is not None and (cfg.conv_exec == "pallas" or affines is not None):
             if affines is None:
                 self._affines = cplan.precompute_affines(
                     self._plan, params, self.bn_state, cfg
@@ -179,11 +182,13 @@ class CompiledDetector:
         return dets, head
 
     def zero_state(self, batch: int) -> dict:
-        """Cold-start membrane dict for a ``batch``-stream session."""
+        """Cold-start membrane dict for a ``batch``-stream session, each
+        layer at its membrane's resolution (:func:`snn_yolo.membrane_hw`:
+        pooled before the LIF under ``pool_drive``)."""
         shapes = sy.layer_shapes(self.cfg)
         return {
             name: torch.zeros((batch, *hw, shapes[name][-1]), device=self.device)
-            for name, hw in sy.layer_hw(self.cfg).items()
+            for name, hw in sy.membrane_hw(self.cfg).items()
         }
 
     def new_session(self, batch: int = 1) -> "DetectorSession":

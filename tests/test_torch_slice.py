@@ -187,16 +187,20 @@ def test_session_reset_one_stream(port_inputs):
         sess.reset(2)
 
 
-def test_unported_paths_raise(port_inputs):
+@pytest.mark.parametrize("mode", ["ann", "qnn", "bnn"])
+def test_unported_paths_raise(port_inputs, mode):
     p, b, a, frames = port_inputs
-    for change in ({"pool_mode": "rate"}, {"pool_drive": True}, {"mode": "ann"}):
-        det = sy.compile_detector(
-            dataclasses.replace(_port_config(), **change), p, b, device="cpu"
-        )
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            det.detect(frames[0])
+    det = sy.compile_detector(
+        dataclasses.replace(_port_config(), mode=mode), p, b, device="cpu"
+    )
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        det.detect(frames[0])
+
+
+def test_unknown_executor_refused(port_inputs):
+    p, b, _, _ = port_inputs
     with pytest.raises(ValueError, match="registered"):
-        sy.compile_detector(_port_config("gated"), p, b, device="cpu")
+        sy.compile_detector(_port_config("systolic"), p, b, device="cpu")
 
 
 def _python(code: str) -> subprocess.CompletedProcess:
@@ -208,7 +212,9 @@ def _python(code: str) -> subprocess.CompletedProcess:
 def test_import_leaves_jax_out():
     r = _python(
         "import sys, repro_torch, repro_torch.serve.detector, repro_torch.interop, "
-        "repro_torch.configs.snn_det\n"
+        "repro_torch.configs.snn_det, repro_torch.core.bitserial, repro_torch.core.bitmask, "
+        "repro_torch.core.spike_conv, repro_torch.kernels.gated_one_to_all, "
+        "repro_torch.train.checkpoint, repro_torch.eval.harness\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad); sys.exit(1 if bad else 0)"
