@@ -40,6 +40,23 @@ c. ``CONFIG`` at ``repro.convert.emit.target_config``'s settings (soft
    replayed through kernel and plain version, and timed; one frame of
    each session is timed.
 
+The kernel benchmarks (the two kernels off the detector paths):
+
+e. The fused LIF kernel against its plain version (int8 spikes equal) at
+   ``kernel_bench``'s (4, 512, 32) and at the detector's LIF volumes:
+   stage0's at T=3 and batch 2, the converted detector's pooled conv_block
+   and encode drives at T=16. Times per shape: kernel, plain version,
+   byte bound (no single PyTorch call computes LIF).
+f. The bitmask matmul kernel against its plain version and a float64
+   product (|Δ| ≤ 1e-5·(|x|@|W|) + 1e-6) at ``kernel_bench``'s (64, 512) ×
+   (512, 256) and at qwen1.5-0.5b's FFN (2048 tokens, d_model 1024, d_ff
+   2816, weight density 0.2): up and down. Times per shape: kernel, plain
+   version, dense f32 ``torch.matmul`` (TF32 off), byte/op bound.
+g. ``repro_torch.benchmarks.kernel_bench.run()`` on the card (every kernel
+   against its oracle, and the fused-pipeline gate ``--fast`` runs), then
+   ``e2e_detector.run`` at full width (``CONFIG``, 576×1024, batch 1): every
+   executor bit-equal to dense, 27 fused launches per frame, wall ms each.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error and times.
 """
@@ -58,8 +75,16 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak, data sheet
+F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores (TF32 is another function)
 BATCH, N_FRAMES, SEED = 2, 3, 0
 CONVERTED_T = 16  # the converted detector's T (target_config: 64-128), cut to fit the run
+# the detector's LIF volumes (T, M, C): stage0 at T=3 (M = N·H·W, batch 2), the
+# converted detector's pooled conv_block and encode drives at T=16
+LIF_SHAPES = ((3, 73728, 32), (16, 294912, 32), (16, 1179648, 16))
+# qwen1.5-0.5b's FFN (src/repro/configs/qwen1_5_0_5b.py: d_model 1024, d_ff
+# 2816) on 2048 tokens, weights pruned to the paper's 80%
+FFN_TOKENS, FFN_D, FFN_FF, FFN_DENSITY = 2048, 1024, 2816, 0.2
+E2E_REPS = 100  # timed detect() calls per executor at 576x1024 (~10 s in all)
 
 
 def card() -> dict:
@@ -410,6 +435,124 @@ def phase_converted(dev, tag) -> dict:
             "library_equal": lib_equal, "max_abs_err": max_err}
 
 
+def phase_lif(dev, tag) -> dict:
+    """(e) the fused LIF kernel against its plain version, with times."""
+    from repro_torch.benchmarks import kernel_bench as kb
+    from repro_torch.kernels import spike_lif as sl
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    rows = []
+    for shape in (kb.LIF_SHAPE,) + LIF_SHAPES:
+        x = torch.randn(shape, generator=gen, device=dev)
+        a = dict(threshold=kb.LIF_THRESHOLD, leak=kb.LIF_LEAK)
+        got, want = sl.fused_lif(x, **a), sl.fused_lif_reference(x, **a)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        if not torch.equal(got, want):
+            raise AssertionError(f"fused LIF kernel != plain version at {shape}: "
+                                 f"{int((got != want).sum())} spikes differ")
+        ms, host_ms = device_ms(lambda: sl.fused_lif(x, **a))
+        plain_ms, _ = device_ms(lambda: sl.fused_lif_reference(x, **a), reps=5)
+        bound = x.numel() * (x.element_size() + 1) / HBM_BYTES_PER_S * 1e3
+        row = {"shape": list(shape), "bit_equal": True, "max_abs_err": err, "ms": ms,
+               "host_ms": host_ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": "bytes", "spike_rate": float(got.float().mean())}
+        rows.append(row)
+        print(json.dumps({"phase": "lif_vs_plain", **row, **tag}), flush=True)
+    return {"rows": rows, "max_abs_err": max(r["max_abs_err"] for r in rows)}
+
+
+def matmul_bound(x, pw, nnz: int) -> tuple[float, str]:
+    """Least time for one bitmask matmul: x, the compressed weights and the
+    f32 output each moved once, against 2 f32 operations per nonzero weight
+    and row of x."""
+    m = x.shape[0]
+    nbytes = (x.numel() * x.element_size() + pw.compressed_bytes + m * pw.shape[1] * 4)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * m * nnz / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_matmul(dev, tag) -> dict:
+    """(f) the bitmask matmul kernel against its plain version and float64."""
+    from repro_torch.benchmarks import kernel_bench as kb
+    from repro_torch.kernels import bitmask_matmul as bmm
+    from repro_torch.kernels import ops
+    from repro_torch.models import snn_yolo as sy
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    inp = kb.make_inputs(SEED)
+    cases = [("kernel_bench", torch.from_numpy(inp["x_mm"]).to(dev),
+              torch.from_numpy(inp["w_mm"]).to(dev))]
+    for name, (k, n) in (("qwen_ffn_up", (FFN_D, FFN_FF)), ("qwen_ffn_down", (FFN_FF, FFN_D))):
+        w = torch.randn((k, n), generator=gen, device=dev)
+        w[torch.rand((k, n), generator=gen, device=dev) >= FFN_DENSITY] = 0.0
+        cases.append((name, torch.randn((FFN_TOKENS, k), generator=gen, device=dev), w))
+    rows = []
+    with sy._no_tf32():  # the plain version, float64 and torch.matmul in full f32
+        for name, x, w in cases:
+            pw = ops.pack_matmul_weights(w).to(dev)
+            got, plain = bmm.bitmask_matmul(x, pw), bmm.bitmask_matmul_reference(x, pw)
+            f64 = x.double() @ w.double()
+            torch.cuda.synchronize()
+            err64 = float((got.double() - f64).abs().max())
+            err_plain = float((got - plain).abs().max())
+            if not (kb.matmul_within(got, x, w, f64) and kb.matmul_within(got, x, w, plain)):
+                raise AssertionError(f"bitmask matmul outside 1e-5·(|x|@|W|) + 1e-6 at {name}: "
+                                     f"max |Δ| {err64} vs float64, {err_plain} vs plain")
+            ms, host_ms = device_ms(lambda: bmm.bitmask_matmul(x, pw))
+            plain_ms, _ = device_ms(lambda: bmm.bitmask_matmul_reference(x, pw), reps=5)
+            lib_ms, _ = device_ms(lambda: torch.matmul(x, w))
+            nnz = int(torch.count_nonzero(w))
+            bound, by = matmul_bound(x, pw, nnz)
+            row = {"case": name, "m_k_n": [x.shape[0], *w.shape], "density": nnz / w.numel(),
+                   "max_abs_err_f64": err64, "max_abs_err_plain": err_plain,
+                   "within_tolerance": True, "ms": ms, "host_ms": host_ms,
+                   "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
+                   "bound_by": by, "compressed_bytes": pw.compressed_bytes,
+                   "dense_bytes": w.numel() * 4}
+            rows.append(row)
+            print(json.dumps({"phase": "bitmask_matmul_vs_plain", **row, **tag}), flush=True)
+    return {"rows": rows, "max_abs_err": max(r["max_abs_err_plain"] for r in rows),
+            "max_abs_err_f64": max(r["max_abs_err_f64"] for r in rows)}
+
+
+def phase_benchmarks(dev, tag) -> dict:
+    """(g) the port's kernel_bench and, at full width, e2e_detector; each
+    driven with the launch counts set to 0 just before it and read after."""
+    from repro_torch import backend
+    from repro_torch.benchmarks import e2e_detector, kernel_bench
+    from repro_torch.configs.snn_det import CONFIG
+
+    t0 = time.perf_counter()
+    backend.reset_launches()
+    bench = kernel_bench.run(dev)
+    torch.cuda.synchronize()
+    bench_launches = dict(backend.launches)
+    missing = [k for k in ("gated_one_to_all", "spike_lif", "bitmask_matmul", "fused_pipeline")
+               if not bench_launches.get(k)]
+    if missing:
+        raise AssertionError(f"kernel_bench launched no {missing}: {bench_launches}")
+    print(json.dumps({"phase": "kernel_bench", "seconds": time.perf_counter() - t0,
+                      "launches": bench_launches, "result": bench, **tag}), flush=True)
+
+    t0 = time.perf_counter()
+    backend.reset_launches()
+    e2e = e2e_detector.run(dataclasses.replace(CONFIG, arch_id="snn-det-e2e"), batch=1,
+                           device=dev, reps=E2E_REPS)
+    torch.cuda.synchronize()
+    e2e_launches = dict(backend.launches)
+    per_frame = {ex: r["launches_per_frame"] for ex, r in e2e["executors"].items()}
+    if per_frame != {"dense": {}, "gated": {}, "pallas": {"fused_pipeline": 27}}:
+        raise AssertionError(f"e2e launches per frame {per_frame}; want 27 fused for pallas")
+    if any(r["max_abs_diff_vs_dense"] != 0.0 for r in e2e["executors"].values()):
+        raise AssertionError(f"e2e executors differ from dense: {e2e['executors']}")
+    print(json.dumps({"phase": "e2e_detector", "seconds": time.perf_counter() - t0,
+                      "launches": e2e_launches, "reps": E2E_REPS, "result": e2e, **tag}),
+          flush=True)
+    return {"bench": bench, "bench_launches": bench_launches, "e2e": e2e,
+            "e2e_launches": e2e_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card",
@@ -628,6 +771,17 @@ def main() -> int:
     print(json.dumps({"phase": "elapsed", "after": "c, d", "s": time.perf_counter() - t_start}),
           flush=True)
 
+    # ---------------- e, f, g. the two kernels off the detector; the benchmarks
+    lif = phase_lif(dev, tag)
+    mm = phase_matmul(dev, tag)
+    print(json.dumps({"phase": "elapsed", "after": "e, f", "s": time.perf_counter() - t_start}),
+          flush=True)
+    benches = phase_benchmarks(dev, tag)
+    print(json.dumps({"phase": "elapsed", "after": "g", "s": time.perf_counter() - t_start}),
+          flush=True)
+    bl, el = benches["bench_launches"], benches["e2e_launches"]
+    lif0, mm0 = lif["rows"][0], mm["rows"][0]  # kernel_bench's own shapes
+
     kernels = [{
         "name": "fused_pipeline",
         "route": "cuda",
@@ -649,6 +803,10 @@ def main() -> int:
         "t16_plain_ms": fused16["plain_ms_per_frame"],
         "t16_bound_ms": fused16["bound_ms_per_frame"],
         "launches_converted": conv["launches"]["fused"],
+        "launches_kernel_bench": bl["fused_pipeline"],
+        "launches_e2e": el["fused_pipeline"],
+        "e2e_wall_ms": {ex: r["wall_s"] * 1e3
+                        for ex, r in benches["e2e"]["executors"].items()},
     }, {
         "name": "gated_one_to_all",
         "route": "cuda",
@@ -669,6 +827,44 @@ def main() -> int:
         "library_equal": conv["library_equal"],
         "launches_taps_forward": conv["taps_launches"]["gated"],
         "ms_12_shapes": sum(r["ms"] for r in gated["rows"][:12]),
+        "launches_kernel_bench": bl["gated_one_to_all"],
+    }, {
+        "name": "fused_lif",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/spike_lif.cu",
+        "replaces": "src/repro/kernels/spike_lif.py:29",
+        "launches": bl["spike_lif"],
+        "max_abs_err": lif["max_abs_err"],
+        "ms": lif0["ms"],
+        "plain_ms": lif0["plain_ms"],
+        "bound_ms": lif0["bound_ms"],
+        "bound_by": lif0["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes LIF over T",
+        "per": f"one call at kernel_bench's {tuple(lif0['shape'])}; launches: one "
+               "kernel_bench run (0 per detector frame)",
+        "check": "int8 spikes equal to the plain version at every shape",
+        "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
+                   for r in lif["rows"]],
+    }, {
+        "name": "bitmask_matmul",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/bitmask_matmul.cu",
+        "replaces": "src/repro/kernels/bitmask_matmul.py:96",
+        "launches": bl["bitmask_matmul"],
+        "max_abs_err": mm["max_abs_err"],
+        "max_abs_err_f64": mm["max_abs_err_f64"],
+        "ms": mm0["ms"],
+        "plain_ms": mm0["plain_ms"],
+        "bound_ms": mm0["bound_ms"],
+        "bound_by": mm0["bound_by"],
+        "library_ms": mm0["library_ms"],
+        "library": "torch.matmul f32 on the dense W, TF32 off",
+        "per": f"one call at kernel_bench's {tuple(mm0['m_k_n'])}; launches: one "
+               "kernel_bench run (0 per detector frame)",
+        "check": "within 1e-5·(|x|@|W|) + 1e-6 of float64 and of the plain version",
+        "shapes": [{k: r[k] for k in ("case", "m_k_n", "ms", "plain_ms", "library_ms",
+                                      "bound_ms", "bound_by")} for r in mm["rows"]],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

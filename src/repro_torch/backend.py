@@ -60,6 +60,13 @@ def reset_launches() -> None:
     launches.clear()
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (nothing to wait for on the
+    CPU): what a wall-clock time around a call needs."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

@@ -14,10 +14,17 @@ import numpy as np
 import torch
 
 from repro_torch.backend import resolve_device
+from repro_torch.kernels.bitmask_matmul import PackedMatmulWeights
 
 
 def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a)).to(device)
+    """numpy → tensor on ``device`` (a writable copy: torch refuses read-only
+    arrays); bfloat16 (ml_dtypes', as JAX hands it to numpy) is carried bit
+    for bit."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def affine_rows(bundle: np.ndarray, kout: int) -> np.ndarray:
@@ -40,3 +47,15 @@ def params_from_numpy(params_np: dict, bn_np: dict, affines_np: dict | None = No
             for n, b in affines_np.items()
         }
     return params, bn, affines
+
+
+def packed_matmul_from_numpy(maskp, vals, shape, kblk: int, nblk: int, *,
+                             device=None) -> PackedMatmulWeights:
+    """A JAX ``PackedMatmulWeights``'s maskp/vals (numpy, e.g.
+    ``np.asarray(pw.maskp)``), shape and blocks → the port's, on ``device``
+    (default: the card)."""
+    dev = resolve_device(device)
+    return PackedMatmulWeights(
+        maskp=_tensor(maskp, dev), vals=_tensor(vals, dev),
+        shape=tuple(int(d) for d in shape), kblk=int(kblk), nblk=int(nblk),
+    )

@@ -22,22 +22,9 @@ import functools
 import torch
 
 from repro_torch import backend
-from repro_torch.core import block_conv as bc
 from repro_torch.kernels.fused_pipeline import block_windows, decode_dense
 
 KERNEL = "gated_one_to_all"  # the library, and its launch count
-
-
-def gated_conv_ref(x: torch.Tensor, w_dense: torch.Tensor, *, bh: int = bc.BLOCK_H,
-                   bw: int = bc.BLOCK_W) -> torch.Tensor:
-    """Block convolution (replicate-padded independent tiles) with dense
-    weights — the semantics the kernel reproduces, as
-    ``repro/kernels/ref.py::gated_conv_ref``. x NHWC (any int/float), w
-    HWIO. Returns f32. Convolves in float64, exact for integer operands
-    whatever algorithm the backend picks (cuDNN may choose an inexact
-    Winograd or FFT conv in float32)."""
-    y = bc.block_conv2d(x.double(), w_dense.double(), block_h=bh, block_w=bw)
-    return y.float()
 
 
 def gated_one_to_all_reference(

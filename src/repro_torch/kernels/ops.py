@@ -2,14 +2,17 @@
 into the kernel's dense live-tap layout, the per-layer affine bundle, and
 the layer entry points :func:`fused_conv_bn_lif` (predecoded weights, or
 the packed ones for the kernel to decode) and :func:`gated_conv` (the
-unfused conv on the packed weights).
+unfused conv on the packed weights), and the two kernels off the detector
+paths: :func:`fused_lif` and :func:`bitmask_matmul` (with
+:func:`pack_matmul_weights`).
 
 Counterpart of ``repro/kernels/ops.py``. Packing is numpy and byte-equal to
 the JAX package's (``maskp``, ``vals``, ``tap_any``, ``tap_alive``): the
 compressed format is the paper's, whatever device runs the layer. The TPU
 kernel's macro-tiled block layout has no counterpart here — the CUDA kernel
 clamps neighbour coordinates into each block instead of copying padded
-blocks (:func:`repro_torch.kernels.fused_pipeline.block_windows`).
+blocks (:func:`repro_torch.kernels.fused_pipeline.block_windows`) — and
+neither have the TPU-only ``mblk``/``interpret`` arguments.
 """
 from __future__ import annotations
 
@@ -19,8 +22,10 @@ import numpy as np
 import torch
 
 from repro_torch.core import lif
+from repro_torch.kernels import bitmask_matmul as bmm
 from repro_torch.kernels import fused_pipeline as fp
 from repro_torch.kernels import gated_one_to_all as g2a
+from repro_torch.kernels import spike_lif as sl
 
 
 class PackedConvWeights(NamedTuple):
@@ -285,3 +290,35 @@ def gated_conv(
         x, weights.maskp, weights.vals, weights.tap_any,
         kout=pw.kout, kh=pw.kh, kw=pw.kw, bh=bh, bw=bw,
     )
+
+
+# ---------------------------------------------------------------------------
+# Fused LIF
+# ---------------------------------------------------------------------------
+
+
+def fused_lif(
+    psum_t: torch.Tensor,  # (T, M, C) f32 or bf16 synaptic inputs
+    *,
+    threshold: float = 0.5,
+    leak: float = 0.25,
+) -> torch.Tensor:
+    """LIF over T in one launch, the membrane never leaving the chip between
+    steps. Returns int8 spikes (T, M, C)."""
+    return sl.fused_lif(psum_t, threshold=threshold, leak=leak)
+
+
+# ---------------------------------------------------------------------------
+# Bitmask sparse matmul (paper's format applied to LM FFN weights)
+# ---------------------------------------------------------------------------
+
+
+def pack_matmul_weights(w, *, kblk: int = 512, nblk: int = 256) -> bmm.PackedMatmulWeights:
+    """W (K, N) → the bitmask-packed form, byte-equal to the JAX package's
+    ``pack_matmul_weights``; on the CPU (``.to(device)`` moves it)."""
+    return bmm.pack_weights(w, kblk=kblk, nblk=nblk)
+
+
+def bitmask_matmul(x: torch.Tensor, packed: bmm.PackedMatmulWeights) -> torch.Tensor:
+    """x (M, K) f32/bf16 × bitmask-compressed W (K, N) → (M, N) f32."""
+    return bmm.bitmask_matmul(x, packed)

@@ -12,7 +12,8 @@ Tensors are NHWC with time leading: (T, N, H, W, C). Parameters are a
 dict {layer: {"w", "gamma", "beta"}}; tdBN state {layer: {"mean", "var",
 "count"}}. The ANN→SNN conversion's operating point runs here too: rate
 encoding, the rate-gated pool, ``pool_drive`` and ``taps=``. Still to
-port: the ann/qnn/bnn modes (they raise).
+port: the ann/qnn/bnn modes (they raise). :func:`layer_specs` describes
+the network to the energy model (:mod:`repro_torch.core.energy`).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ import torch
 
 from repro_torch.backend import resolve_device
 from repro_torch.core import block_conv as bc
+from repro_torch.core import energy as en
 from repro_torch.core import lif as lifm
 from repro_torch.core import plan as cplan
 from repro_torch.core import quant
@@ -403,6 +405,74 @@ def forward(params, bn_state, images, cfg: SNNDetConfig, *, train: bool = False,
     n, gh, gw, _ = head.shape
     head = head.reshape(n, gh, gw, cfg.num_anchors, 5 + cfg.num_classes)
     return head, new_state, aux
+
+
+# ------------------------------------------------------- layer accounting --
+
+
+# Per-layer post-pruning densities of the 3×3 kernels, shaped like paper
+# Fig 3: a single global magnitude threshold keeps far more weights in the
+# small early layers than in the large late ones (the JAX package's
+# calibration: Table I's −70% params and §IV-E's −47.3% ops jointly).
+FIG3_DENSITY_PROFILE = {
+    "encode": 0.70,
+    "conv_block": 0.70,
+    "stage0": 0.70,
+    "stage1": 0.50,
+    "stage2": 0.50,
+    "stage3": 0.12,
+    "stage4": 0.12,
+}
+
+
+def layer_specs(
+    cfg: SNNDetConfig, *, pruned_density: float | dict | None = None
+) -> list[en.ConvLayerSpec]:
+    """The network as a ConvLayerSpec list for the §IV-D/E energy model.
+
+    density applies to 3×3 kernels only (paper prunes only those at 80%).
+    ``pruned_density``: None → Fig 3 profile; float → uniform; dict →
+    per-group override. Time steps follow the (1, full_t) mixed schedule.
+    """
+    H, W = cfg.input_hw
+    t = cfg.full_t
+    if pruned_density is None:
+        profile = FIG3_DENSITY_PROFILE
+    elif isinstance(pruned_density, dict):
+        profile = pruned_density
+    else:
+        profile = {k: pruned_density for k in FIG3_DENSITY_PROFILE}
+
+    specs = [
+        en.ConvLayerSpec(
+            "encode", H, W, 3, cfg.stem_channels, 3, 1, 1, bits_in=8, density=profile["encode"]
+        )
+    ]
+    h, w = H // 2, W // 2
+    specs.append(
+        en.ConvLayerSpec("conv_block", h, w, cfg.stem_channels, cfg.conv_block_channels, 3,
+                         1, t, density=profile["conv_block"])
+    )
+    h, w = h // 2, w // 2
+    for i, (cin, cout) in enumerate(cfg.stage_channels):
+        half = cout // 2
+        d3 = profile[f"stage{i}"]
+        specs += [
+            en.ConvLayerSpec(f"stage{i}/shortcut", h, w, cin, half, 1, t, t),
+            en.ConvLayerSpec(f"stage{i}/main_in", h, w, cin, cout, 1, t, t),
+            en.ConvLayerSpec(f"stage{i}/main_a", h, w, cout, cout, 3, t, t, density=d3),
+            en.ConvLayerSpec(f"stage{i}/main_b", h, w, cout, cout, 3, t, t, density=d3),
+            en.ConvLayerSpec(f"stage{i}/agg", h, w, cout + half, cout, 1, t, t),
+        ]
+        if i < cfg.pooled_stages - 1:
+            h, w = h // 2, w // 2
+    gh, gw = cfg.grid_hw
+    specs.append(
+        en.ConvLayerSpec(
+            "head", gh, gw, cfg.stage_channels[-1][1], cfg.head_channels, 1, t, t, bits_out=8
+        )
+    )
+    return specs
 
 
 # ------------------------------------------------------------- YOLOv2 head -

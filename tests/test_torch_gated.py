@@ -20,7 +20,7 @@ from repro_torch.core import plan as cplan  # noqa: E402
 from repro_torch.core import spike_conv as sc  # noqa: E402
 from repro_torch.kernels import fused_pipeline as fp  # noqa: E402
 from repro_torch.kernels import gated_one_to_all as g2a  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
 
 
 def _weights(seed, kh, cin, k, density):
@@ -53,7 +53,7 @@ def test_gated_conv_equals_jax_kernel(name):
     got = ops.gated_conv(torch.from_numpy(x.astype(np.uint8)), pw, bh=18, bw=32)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
-    oracle = g2a.gated_conv_ref(torch.from_numpy(x), torch.from_numpy(wq), bh=18, bw=32)
+    oracle = ref.gated_conv_ref(torch.from_numpy(x), torch.from_numpy(wq), bh=18, bw=32)
     assert torch.equal(got.float(), oracle)
 
 
@@ -104,7 +104,7 @@ def test_gated_executor_is_live_tap_im2col():
     for hi in (2, 256):
         x = torch.from_numpy(rng.integers(0, hi, (2, 12, 16, 8)).astype(np.float32))
         got = cplan._blocked_gated(x, w, 6, 8, taps)
-        assert torch.equal(got, g2a.gated_conv_ref(x, w, bh=6, bw=8))
+        assert torch.equal(got, ref.gated_conv_ref(x, w, bh=6, bw=8))
 
 
 def test_bitserial_equals_jax():

@@ -1,6 +1,8 @@
-"""The port's CUDA kernels against their plain PyTorch versions on the card,
-bit for bit: the fused pipeline in both weight modes (T up to 16), and the
-gated one-to-all conv. Needs a CUDA device and nothing of JAX; skips
+"""The port's CUDA kernels against their plain PyTorch versions on the card:
+bit for bit, the fused pipeline in both weight modes (T up to 16), the
+gated one-to-all conv and the fused LIF; the bitmask matmul within
+1e-5·(|x|@|W|) + 1e-6 of its plain version and of a float64 product (f32
+sums in another order). Needs a CUDA device and nothing of JAX; skips
 without a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -10,9 +12,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import bitmask_matmul as bmm  # noqa: E402
 from repro_torch.kernels import fused_pipeline as fp  # noqa: E402
 from repro_torch.kernels import gated_one_to_all as g2a  # noqa: E402
-from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import spike_lif as sl  # noqa: E402
 
 THR, LEAK = 0.5, 0.25
 
@@ -121,7 +125,97 @@ def test_gated_one_to_all_kernel_equals_plain_version(cuda, name):
     got = g2a.gated_one_to_all(xt, *dev, **kw)
     assert g2a.backend.launches[g2a.KERNEL] == before + 1
     want = g2a.gated_one_to_all_reference(xt, *dev, **kw)
-    oracle = g2a.gated_conv_ref(xt[..., :cin], torch.from_numpy(wq).to(cuda), bh=bh, bw=bw)
+    oracle = ref.gated_conv_ref(xt[..., :cin], torch.from_numpy(wq).to(cuda), bh=bh, bw=bw)
     torch.cuda.synchronize()
     assert got.dtype == torch.int32 and torch.equal(got, want)
     assert torch.equal(got.float(), oracle)
+
+
+LIF_CASES = {
+    # t, m, c, dtype, threshold, leak
+    "T1": (1, 300, 16, torch.float32, 0.5, 0.25),
+    "T3-ragged-m": (3, 1001, 8, torch.float32, 0.5, 0.25),
+    "T5-c3": (5, 777, 3, torch.float32, 0.3, 0.5),
+    "T16": (16, 4096, 32, torch.float32, 0.5, 0.25),
+    "T4-bf16": (4, 513, 16, torch.bfloat16, 0.5, 0.25),
+    "T3-bf16-odd": (3, 37, 3, torch.bfloat16, 0.3, 0.5),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(LIF_CASES))
+def test_fused_lif_kernel_equals_plain_version(cuda, name):
+    t, m, c, dtype, thr, leak = LIF_CASES[name]
+    x = np.random.default_rng(t * m).standard_normal((t, m, c)).astype(np.float32)
+    x[0, 0, :3] = [np.inf, np.nan, -0.0]
+    xt = torch.from_numpy(x).to(dtype).to(cuda)
+    before = sl.backend.launches[sl.KERNEL]
+    got = sl.fused_lif(xt, threshold=thr, leak=leak)
+    assert sl.backend.launches[sl.KERNEL] == before + 1
+    want = sl.fused_lif_reference(xt, threshold=thr, leak=leak)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+    assert torch.equal(got, ref.fused_lif_ref(xt, threshold=thr, leak=leak))
+
+
+MATMUL_CASES = {
+    # m, k, n, density, kblk, nblk, x dtype, W dtype
+    "one-block": (64, 512, 256, 0.2, 512, 256, torch.float32, torch.float32),
+    "blocks-3x3": (200, 1500, 700, 0.2, 512, 256, torch.float32, torch.float32),
+    "ragged-small-blocks": (37, 100, 70, 0.3, 16, 24, torch.float32, torch.float32),
+    "nblk-48": (129, 96, 150, 0.5, 32, 48, torch.float32, torch.float32),
+    "zero-blocks": (65, 1024, 512, 0.2, 512, 256, torch.float32, torch.float32),
+    "all-zero": (8, 64, 40, 0.0, 32, 16, torch.float32, torch.float32),
+    "bf16-x": (100, 600, 300, 0.2, 512, 256, torch.bfloat16, torch.float32),
+    "bf16-both": (100, 600, 300, 0.2, 512, 256, torch.bfloat16, torch.bfloat16),
+    "int8-vals": (100, 600, 300, 0.2, 512, 256, torch.float32, torch.int8),
+    "dense": (64, 256, 128, 1.0, 64, 128, torch.float32, torch.float32),
+}
+
+
+def _matmul_operands(name, dev):
+    m, k, n, density, kblk, nblk, xdt, wdt = MATMUL_CASES[name]
+    rng = np.random.default_rng(m + k + n)
+    w = rng.standard_normal((k, n)) * (50 if wdt == torch.int8 else 1)
+    w[rng.random((k, n)) >= density] = 0.0
+    if name == "zero-blocks":
+        w[:512, 256:] = 0.0  # two whole blocks
+    wt = (torch.from_numpy(np.clip(np.round(w), -127, 127)).to(torch.int8)
+          if wdt == torch.int8 else torch.from_numpy(w).to(wdt))
+    x = torch.from_numpy(rng.standard_normal((m, k))).to(xdt).to(dev)
+    return x, wt, ops.pack_matmul_weights(wt, kblk=kblk, nblk=nblk).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(MATMUL_CASES))
+def test_bitmask_matmul_kernel_within_tolerance(cuda, name):
+    x, wt, pw = _matmul_operands(name, cuda)
+    before = bmm.backend.launches[bmm.KERNEL]
+    got = bmm.bitmask_matmul(x, pw)
+    assert bmm.backend.launches[bmm.KERNEL] == before + 1
+    plain = bmm.bitmask_matmul_reference(x, pw)
+    torch.cuda.synchronize()
+    w64 = wt.double().to(cuda)
+    f64 = x.double() @ w64
+    tol = 1e-5 * (x.double().abs() @ w64.abs()) + 1e-6
+    assert got.dtype == torch.float32 and got.shape == plain.shape
+    for want in (plain, f64):
+        assert bool(((got.double() - want.double()).abs() <= tol).all()), \
+            float((got.double() - want.double()).abs().max())
+
+
+@pytest.mark.gpu
+def test_new_kernels_refuse_bad_input(cuda):
+    x, _, pw = _matmul_operands("one-block", cuda)
+    with pytest.raises(ValueError, match="is on cpu"):
+        bmm.bitmask_matmul(x, pw.to("cpu"))
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        bmm.bitmask_matmul(x.half(), pw)
+    with pytest.raises(ValueError, match="contiguous"):
+        bmm.bitmask_matmul(x.t().contiguous().t(), pw)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        sl.fused_lif(torch.zeros((2, 8, 4), dtype=torch.float16, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        sl.fused_lif(torch.zeros((4, 8, 2), device=cuda).transpose(0, 2))
+    with pytest.raises(ValueError, match="aligned"):
+        sl.fused_lif(torch.zeros(65, device=cuda)[1:].reshape(1, 8, 8))

@@ -214,7 +214,10 @@ def test_import_leaves_jax_out():
         "import sys, repro_torch, repro_torch.serve.detector, repro_torch.interop, "
         "repro_torch.configs.snn_det, repro_torch.core.bitserial, repro_torch.core.bitmask, "
         "repro_torch.core.spike_conv, repro_torch.kernels.gated_one_to_all, "
-        "repro_torch.train.checkpoint, repro_torch.eval.harness\n"
+        "repro_torch.train.checkpoint, repro_torch.eval.harness, repro_torch.core.energy, "
+        "repro_torch.kernels.ref, repro_torch.kernels.spike_lif, "
+        "repro_torch.kernels.bitmask_matmul, repro_torch.benchmarks.kernel_bench, "
+        "repro_torch.benchmarks.e2e_detector\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad); sys.exit(1 if bad else 0)"
