@@ -18,8 +18,8 @@ Phases (any failure exits non-zero, and the last line is never printed):
    detections equal; spikes flowing in stage4; every layer's real inputs
    replayed through the kernel and its plain version, bit-equal.
 4. Times (CUDA events): per layer (kernel, plain version, cuDNN conv
-   yardstick, byte/op bound) and per frame, each with the card's name and
-   power limit.
+   yardstick, byte/op bound, the kernel's tile plan) and per frame, each
+   with the card's name and power limit.
 
 The unfused kernel executor (the ANN→SNN conversion's operating point):
 
@@ -49,9 +49,10 @@ e. The fused LIF kernel against its plain version (int8 spikes equal) at
    byte bound (no single PyTorch call computes LIF).
 f. The bitmask matmul kernel against its plain version and a float64
    product (|Δ| ≤ 1e-5·(|x|@|W|) + 1e-6) at ``kernel_bench``'s (64, 512) ×
-   (512, 256) and at qwen1.5-0.5b's FFN (2048 tokens, d_model 1024, d_ff
-   2816, weight density 0.2): up and down. Times per shape: kernel, plain
-   version, dense f32 ``torch.matmul`` (TF32 off), byte/op bound.
+   (512, 256) and at qwen1.5-0.5b's FFN (d_model 1024, d_ff 2816, weight
+   density 0.2), up and down, on 2048 tokens and on 16 (a decode step,
+   where the compressed weights' bytes bound it). Times per shape: kernel,
+   plain version, dense f32 ``torch.matmul`` (TF32 off), byte/op bound.
 g. ``repro_torch.benchmarks.kernel_bench.run()`` on the card (every kernel
    against its oracle, and the fused-pipeline gate ``--fast`` runs), then
    ``e2e_detector.run`` at full width (``CONFIG``, 576×1024, batch 1): every
@@ -75,7 +76,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, data sheet
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor-core peak, data sheet
-F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores (TF32 is another function)
+F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores: the bound of the f32 function
 BATCH, N_FRAMES, SEED = 2, 3, 0
 CONVERTED_T = 16  # the converted detector's T (target_config: 64-128), cut to fit the run
 # the detector's LIF volumes (T, M, C): stage0 at T=3 (M = N·H·W, batch 2), the
@@ -84,6 +85,7 @@ LIF_SHAPES = ((3, 73728, 32), (16, 294912, 32), (16, 1179648, 16))
 # qwen1.5-0.5b's FFN (src/repro/configs/qwen1_5_0_5b.py: d_model 1024, d_ff
 # 2816) on 2048 tokens, weights pruned to the paper's 80%
 FFN_TOKENS, FFN_D, FFN_FF, FFN_DENSITY = 2048, 1024, 2816, 0.2
+FFN_DECODE_TOKENS = 16  # a decode step: the format's use, bound by the weights' bytes
 E2E_REPS = 100  # timed detect() calls per executor at 576x1024 (~10 s in all)
 
 
@@ -298,6 +300,7 @@ def phase_fused_t16(dev, cfg, tag) -> dict:
                     f"max |Δmem| {err}, spike mismatches {int((spk != rspk).sum())}")
             n_checked += 1
         ms, _ = device_ms(lambda: fp.fused_pipeline(x, live.w, live.taps, affine, v0, **a))
+        plan = fp.last_plan()
         plain_ms = elapsed_ms(
             lambda: fp.fused_pipeline_reference(x, live.w, live.taps, affine, v0, **a), reps=2)
         bound, _ = layer_bound(dict(x=x, w=live.w, v0=v0, kout=kout, t_out=CONVERTED_T,
@@ -307,7 +310,8 @@ def phase_fused_t16(dev, cfg, tag) -> dict:
         total["bound_ms"] += bound
         print(json.dumps({"phase": "fused_t16", "layer": name, "x": list(x.shape),
                           "kout": kout, "bit_equal": True, "ms": ms, "plain_ms": plain_ms,
-                          "bound_ms": bound, "spike_rate": float(rspk.float().mean())}))
+                          "bound_ms": bound, "spike_rate": float(rspk.float().mean()),
+                          "plan": plan}))
     out = {"checks": n_checked, "max_abs_err": max_err, "t": CONVERTED_T,
            **{f"{k}_per_frame": v for k, v in total.items()}}
     print(json.dumps({"phase": "fused_t16", **out, **tag}), flush=True)
@@ -487,6 +491,8 @@ def phase_matmul(dev, tag) -> dict:
         w = torch.randn((k, n), generator=gen, device=dev)
         w[torch.rand((k, n), generator=gen, device=dev) >= FFN_DENSITY] = 0.0
         cases.append((name, torch.randn((FFN_TOKENS, k), generator=gen, device=dev), w))
+        cases.append((f"{name}_{FFN_DECODE_TOKENS}tok",
+                      torch.randn((FFN_DECODE_TOKENS, k), generator=gen, device=dev), w))
     rows = []
     with sy._no_tf32():  # the plain version, float64 and torch.matmul in full f32
         for name, x, w in cases:
@@ -500,16 +506,18 @@ def phase_matmul(dev, tag) -> dict:
                 raise AssertionError(f"bitmask matmul outside 1e-5·(|x|@|W|) + 1e-6 at {name}: "
                                      f"max |Δ| {err64} vs float64, {err_plain} vs plain")
             ms, host_ms = device_ms(lambda: bmm.bitmask_matmul(x, pw))
+            plan = bmm.last_plan()
             plain_ms, _ = device_ms(lambda: bmm.bitmask_matmul_reference(x, pw), reps=5)
             lib_ms, _ = device_ms(lambda: torch.matmul(x, w))
             nnz = int(torch.count_nonzero(w))
             bound, by = matmul_bound(x, pw, nnz)
             row = {"case": name, "m_k_n": [x.shape[0], *w.shape], "density": nnz / w.numel(),
+                   "splits": bmm.kernel_splits(x.shape[0], pw),
                    "max_abs_err_f64": err64, "max_abs_err_plain": err_plain,
                    "within_tolerance": True, "ms": ms, "host_ms": host_ms,
                    "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
                    "bound_by": by, "compressed_bytes": pw.compressed_bytes,
-                   "dense_bytes": w.numel() * 4}
+                   "dense_bytes": w.numel() * 4, "plan": plan}
             rows.append(row)
             print(json.dumps({"phase": "bitmask_matmul_vs_plain", **row, **tag}), flush=True)
     return {"rows": rows, "max_abs_err": max(r["max_abs_err_plain"] for r in rows),
@@ -581,10 +589,12 @@ def main() -> int:
     libs = backend.load_kernels()
     build_s = time.perf_counter() - t0
     print(json.dumps({"phase": "build", "seconds": build_s, "libraries": sorted(libs), **tag}))
+    ptxas = {}  # library -> ptxas's registers / shared memory / spill lines
     for name in libs:
         log = backend.build_log(name)
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-        print(json.dumps({"phase": "ptxas", "library": name, "lines": regs}))
+        ptxas[name] = [ln.strip() for ln in log.splitlines()
+                       if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+        print(json.dumps({"phase": "ptxas", "library": name, "lines": ptxas[name]}))
 
     # ------------------------------------ 2. kernel vs plain, full width
     cfg = dataclasses.replace(CONFIG, conv_exec="pallas")
@@ -722,6 +732,7 @@ def main() -> int:
         if not (bits_equal(spk, rspk) and bits_equal(mem, rmem)):
             raise AssertionError(f"kernel != plain version on the main path's {name} inputs")
         ms, host_ms = device_ms(lambda: fp.fused_pipeline(x, w_, taps, affine, v0, **a))
+        plan = fp.last_plan()
         plain_ms, plain_host_ms = device_ms(
             lambda: fp.fused_pipeline_reference(x, w_, taps, affine, v0, **a), reps=5)
         kh = a["kh"]
@@ -735,7 +746,8 @@ def main() -> int:
         bound_by[by] += bound
         row = {"layer": name, "x": list(x.shape), "kout": a["kout"], "live_taps": len(taps),
                "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound,
-               "bound_by": by, "host_ms": host_ms, "plain_host_ms": plain_host_ms}
+               "bound_by": by, "host_ms": host_ms, "plain_host_ms": plain_host_ms,
+               "plan": plan}
         layers.append(row)
         for k in totals:
             totals[k] += row[k]
@@ -803,6 +815,8 @@ def main() -> int:
         "t16_plain_ms": fused16["plain_ms_per_frame"],
         "t16_bound_ms": fused16["bound_ms_per_frame"],
         "launches_converted": conv["launches"]["fused"],
+        "ptxas": ptxas.get("fused_pipeline", []),
+        "smem_bytes": sorted({r["plan"]["smem_bytes"] for r in layers}),
         "launches_kernel_bench": bl["fused_pipeline"],
         "launches_e2e": el["fused_pipeline"],
         "e2e_wall_ms": {ex: r["wall_s"] * 1e3
@@ -863,8 +877,10 @@ def main() -> int:
         "per": f"one call at kernel_bench's {tuple(mm0['m_k_n'])}; launches: one "
                "kernel_bench run (0 per detector frame)",
         "check": "within 1e-5·(|x|@|W|) + 1e-6 of float64 and of the plain version",
-        "shapes": [{k: r[k] for k in ("case", "m_k_n", "ms", "plain_ms", "library_ms",
+        "shapes": [{k: r[k] for k in ("case", "m_k_n", "splits", "ms", "plain_ms", "library_ms",
                                       "bound_ms", "bound_by")} for r in mm["rows"]],
+        "ptxas": ptxas.get("bitmask_matmul", []),
+        "smem_bytes": sorted({r["plan"]["smem_bytes"] for r in mm["rows"]}),
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,14 +7,19 @@ pruning is stored as a bit-packed mask and its nonzero values per (KBLK,
 NBLK) block, byte-equal to the JAX package's packing. :func:`bitmask_matmul`
 is the wrapper: on CUDA tensors it launches ``csrc/bitmask_matmul.cu``
 (built with ``nvcc`` for ``sm_90a``, see :mod:`repro_torch.backend`), which
-decodes the weights slice by slice in shared memory; on CPU tensors it runs
-:func:`bitmask_matmul_reference`, the plain PyTorch version beside it.
-There is no other route: a CUDA tensor never falls back to the plain
-version, and a failed build or launch raises.
+decodes the weights slice by slice in shared memory and multiplies on the
+tensor cores; on CPU tensors it runs :func:`bitmask_matmul_reference`, the
+plain PyTorch version beside it. There is no other route: a CUDA tensor
+never falls back to the plain version, and a failed build or launch raises.
 
-Both compute f32 products with f32 sums (no TF32), in different orders, so
+The kernel computes the f32 function with 3xTF32 products (one bf16 pass
+when x is bf16 and the values bf16 or int8, exact per product) and f32
+sums; the plain version with f32 products and sums. The orders differ, so
 they agree to rounding, not bit for bit. The TPU kernel's ``mblk`` row
 tiling has no counterpart: x is not padded, the kernel guards its edges.
+At small M the kernel splits the K slices across blocks and sums the
+partials in a fixed order from a workspace this wrapper allocates, so a
+result is the same from run to run.
 """
 from __future__ import annotations
 
@@ -142,8 +147,12 @@ def bitmask_matmul(x: torch.Tensor, packed: PackedMatmulWeights) -> torch.Tensor
     kb_t, nb_t, _, _ = packed.maskp.shape
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _launcher()(
+        splits = kernel_splits(m, packed)
+        ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+              if splits > 1 else None)
+        err = _launcher()[0](
             x.data_ptr(), packed.maskp.data_ptr(), packed.vals.data_ptr(), out.data_ptr(),
+            None if ws is None else ws.data_ptr(),
             m, k, n, kb_t, nb_t, packed.kblk, packed.nblk, packed.vals.shape[2],
             X_DTYPES[x.dtype], V_DTYPES[packed.vals.dtype],
             torch.cuda.current_stream().cuda_stream,
@@ -153,11 +162,37 @@ def bitmask_matmul(x: torch.Tensor, packed: PackedMatmulWeights) -> torch.Tensor
     return out
 
 
+PLAN_KEYS = ("smem_bytes", "splits", "grid_x", "grid_y", "grid_z")
+
+
+def last_plan() -> dict:
+    """The plan of this process's last kernel launch, for diagnostics:
+    shared memory, K-splits and grid."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    backend.load_kernels()[KERNEL].bitmask_matmul_last_plan(out)
+    return dict(zip(PLAN_KEYS, out))
+
+
+def kernel_splits(m: int, packed: PackedMatmulWeights) -> int:
+    """How many K-splits the kernel runs for x of M rows on the current
+    card (1: none): the output tiles are split until they fill the SMs."""
+    k, n = packed.shape
+    if not (m and n):
+        return 1
+    kb_t, nb_t, _, _ = packed.maskp.shape
+    return _launcher()[1](m, k, n, kb_t, nb_t, packed.kblk, packed.nblk)
+
+
 @functools.cache
 def _launcher():
-    """The C entry point, its signature declared once: four pointers, ten
-    ints, the stream."""
-    fn = backend.load_kernels()[KERNEL].bitmask_matmul_launch
+    """The C entry points, their signatures declared once: the launch (five
+    pointers, ten ints, the stream) and the split-K count for a shape
+    (seven ints), which sizes the workspace."""
+    lib = backend.load_kernels()[KERNEL]
+    fn = lib.bitmask_matmul_launch
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-    return fn
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    splits = lib.bitmask_matmul_splits
+    splits.restype = ctypes.c_int
+    splits.argtypes = [ctypes.c_int] * 7
+    return fn, splits

@@ -12,10 +12,16 @@ decoded in the kernel) are the wrappers: on a CUDA tensor they launch
 There is no other route: a CUDA tensor never falls back to the plain
 version, and a failed build or launch raises.
 
-The plain version computes the same float chain one eager op at a time
-(each product rounded on its own); the kernel pins the same roundings with
-``__fmul_rn``/``__fadd_rn`` and is built ``-fmad=false``, so the two agree
-bit for bit on the card.
+The kernel runs each time step's conv as an int8 GEMM on the tensor cores
+(``mma.sync`` u8 × s8 → s32, exact in any order) with the block's weights
+resident in shared memory; the plain version is an im2col product of
+integer-valued f32, also exact. Both then compute the same float chain,
+the plain version one eager op at a time (each product rounded on its
+own), the kernel with the same roundings pinned by ``__fmul_rn``/
+``__fadd_rn`` and built ``-fmad=false``, so the two agree bit for bit on
+the card. The packed mode needs the block's decoded weight slice to fit in
+shared memory (every layer of the detector does); the predecoded mode
+streams a slice that does not.
 """
 from __future__ import annotations
 
@@ -264,6 +270,19 @@ def fused_pipeline_packed(
     fn = _launcher("fused_pipeline_packed_launch", 7, 14)
     return _launch(KERNEL_PACKED, fn, (x.data_ptr(), maskp.data_ptr(), vals.data_ptr()),
                    (kb_total, kblk, vals.shape[1]), x, taps, affine, v0, **kwargs)
+
+
+PLAN_KEYS = ("smem_bytes", "steps_per_pass", "tile_pixels", "tile_channels", "halo",
+             "chunk", "chunks_per_pass", "grid_x", "grid_y", "blocks_per_sm")
+
+
+def last_plan() -> dict:
+    """The tile plan of this process's last kernel launch (either weight
+    mode), for diagnostics: shared memory, tile shape, halo mode, chunks,
+    grid and blocks per SM."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    backend.load_kernels()[KERNEL].fused_pipeline_last_plan(out)
+    return dict(zip(PLAN_KEYS, out))
 
 
 @functools.cache

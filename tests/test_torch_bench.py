@@ -205,7 +205,7 @@ def test_e2e_detector_main_writes_only_where_asked(tmp_path, monkeypatch):
     assert all(r["launches_per_frame"] == {} for r in res["executors"].values())
 
 
-@pytest.mark.parametrize("module", ["kernel_bench", "e2e_detector"])
+@pytest.mark.parametrize("module", ["kernel_bench", "e2e_detector", "kernel_phases"])
 def test_benchmarks_default_to_the_card(module, tmp_path):
     """Without --device a benchmark runs on the card, and with no card it
     raises instead of falling back to the CPU."""
@@ -214,3 +214,16 @@ def test_benchmarks_default_to_the_card(module, tmp_path):
                        cwd=tmp_path, capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and "no CUDA device" in r.stderr, r.stdout + r.stderr
     assert os.listdir(tmp_path) == []
+
+
+def test_kernel_phases_instruments_both_kernels():
+    """The phase counter's copies of the two tensor-core kernels find every
+    anchor in the sources (a source edit that moves one fails here, on the
+    CPU, before a chip run) and keep the kernels' entry points."""
+    from repro_torch.benchmarks import kernel_phases as kp
+
+    for name, src in (("fused_pipeline", kp.fused_source()),
+                      ("bitmask_matmul", kp.matmul_source())):
+        assert src.count("clock64()") >= 8, name
+        assert 'extern "C" int phases_read' in src and "g_phases[b][i] = v[i]" in src
+        assert f'extern "C" int {name}_launch' in src

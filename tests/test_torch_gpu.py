@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
-bit for bit, the fused pipeline in both weight modes (T up to 16), the
-gated one-to-all conv and the fused LIF; the bitmask matmul within
+bit for bit, the fused pipeline in both weight modes (T up to 16, each of
+its tensor-core tilings, weights resident or streamed), the gated
+one-to-all conv and the fused LIF; the bitmask matmul within
 1e-5·(|x|@|W|) + 1e-6 of its plain version and of a float64 product (f32
-sums in another order). Needs a CUDA device and nothing of JAX; skips
+sums in another order), its split-K path the same from run to run. Needs a CUDA device and nothing of JAX; skips
 without a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -38,6 +39,15 @@ CASES = {
     "T5-mixed": (3, 8, 16, 1, 5, False, "hard", True, (), (12, 16), (6, 8)),
     "T8-mixed-u8": (3, 3, 16, 1, 8, True, "soft", False, (), (36, 64), (18, 32)),
     "T16-mixed": (3, 16, 32, 1, 16, False, "soft", True, (), (36, 64), (18, 32)),
+    # the tensor-core tilings: C = 16 (two taps per 32-byte k-step), a wide
+    # 1x1, Kout not a multiple of the channel tile, the one-block 18x32 map
+    # at Kout 256 (32 x 64 tiles) at T = 3 and T = 16
+    "c16-two-taps-per-kstep": (3, 16, 24, 3, 3, False, "hard", True, (), (36, 64), (18, 32)),
+    "1x1-c384-k256": (1, 384, 256, 3, 3, False, "soft", True, (), (18, 32), (18, 32)),
+    "kout40-tail": (3, 16, 40, 3, 3, False, "hard", True, (), (12, 16), (6, 8)),
+    "3x3-kout6-tail": (3, 8, 6, 1, 3, False, "soft", True, (), (12, 16), (6, 8)),
+    "18x32-k256-T3": (3, 256, 256, 3, 3, False, "soft", True, (), (18, 32), (18, 32)),
+    "18x32-k256-T16": (3, 256, 256, 16, 16, False, "hard", False, (), (18, 32), (18, 32)),
 }
 
 
@@ -48,18 +58,16 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("mode", ["predecoded", "packed"])
-@pytest.mark.parametrize("name", list(CASES))
-def test_fused_pipeline_kernel_equals_plain_version(cuda, name, mode):
-    kh, cin, kout, t_in, t_out, u8, reset, warm, dead, (h, w), (bh, bw) = CASES[name]
+def _fused_operands(case, dev, density=0.3):
+    """(args, kw, pw) for one fused case: seeded weights, inputs, affine."""
+    kh, cin, kout, t_in, t_out, u8, reset, warm, dead, (h, w), (bh, bw) = case
     rng = np.random.default_rng(0)
     wq = rng.integers(-127, 128, (kh, kh, cin, kout)).astype(np.int8)
-    wq[rng.random(wq.shape) > 0.3] = 0
+    wq[rng.random(wq.shape) > density] = 0
     for t in dead:
         wq[t // kh, t % kh] = 0
     pw = ops.pack_conv_weights(wq, kblk=128)
-    live = ops.predecode(pw, cuda)
+    live = ops.predecode(pw, dev)
     x = rng.integers(0, 256 if u8 else 2, (t_in, 2, h, w, pw.cin)).astype(np.uint8)
     x[..., cin:] = 0
     rows = np.stack([
@@ -67,16 +75,43 @@ def test_fused_pipeline_kernel_equals_plain_version(cuda, name, mode):
         rng.normal(size=kout), rng.random(kout) + 0.5, rng.normal(size=kout),
         rng.normal(size=kout),
     ]).astype(np.float32)
-    affine = ops.pad_affine(torch.tensor(rows, device=cuda), pw.kp)
+    affine = ops.pad_affine(torch.tensor(rows, device=dev), pw.kp)
     v0 = torch.tensor(rng.normal(size=(2, h, w, kout)), dtype=torch.float32,
-                      device=cuda) if warm else None
-    args = (torch.from_numpy(x).to(cuda), live.w, live.taps, affine, v0)
+                      device=dev) if warm else None
+    args = (torch.from_numpy(x).to(dev), live.w, live.taps, affine, v0)
     kw = dict(kout=kout, kh=kh, kw=kh, bh=bh, bw=bw, t_out=t_out, bn_scale=THR,
               threshold=THR, leak=LEAK, reset=reset, v_init=0.25)
+    return args, kw, pw
+
+
+@pytest.mark.gpu
+def test_fused_pipeline_streams_weights_past_the_resident_budget(cuda):
+    """A 7x7 layer at C = 256: its 64-channel weight slice (49*256*64 B =
+    784 KB) exceeds shared memory, so the predecoded kernel streams the
+    weights in K-chunks beside the inputs; still bit-equal. The packed mode
+    decodes into resident shared memory only and refuses the layer."""
+    case = (7, 256, 64, 3, 3, False, "soft", True, (), (18, 32), (18, 32))
+    args, kw, pw = _fused_operands(case, cuda, density=0.2)
+    spk, mem = fp.fused_pipeline(*args, **kw)
+    rspk, rmem = fp.fused_pipeline_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(spk, rspk)
+    assert torch.equal(mem.view(torch.int32), rmem.view(torch.int32))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fp.fused_pipeline_packed(args[0], torch.from_numpy(pw.maskp).to(cuda),
+                                 torch.from_numpy(pw.vals).to(cuda), pw.tap_alive,
+                                 args[3], args[4], **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["predecoded", "packed"])
+@pytest.mark.parametrize("name", list(CASES))
+def test_fused_pipeline_kernel_equals_plain_version(cuda, name, mode):
+    args, kw, pw = _fused_operands(CASES[name], cuda)
     if mode == "packed":
         counter, launch = fp.KERNEL_PACKED, lambda: fp.fused_pipeline_packed(
             args[0], torch.from_numpy(pw.maskp).to(cuda),
-            torch.from_numpy(pw.vals).to(cuda), pw.tap_alive, affine, v0, **kw)
+            torch.from_numpy(pw.vals).to(cuda), pw.tap_alive, *args[3:], **kw)
     else:
         counter, launch = fp.KERNEL, lambda: fp.fused_pipeline(*args, **kw)
     before = fp.backend.launches[counter]
@@ -170,6 +205,18 @@ MATMUL_CASES = {
     "bf16-both": (100, 600, 300, 0.2, 512, 256, torch.bfloat16, torch.bfloat16),
     "int8-vals": (100, 600, 300, 0.2, 512, 256, torch.float32, torch.int8),
     "dense": (64, 256, 128, 1.0, 64, 128, torch.float32, torch.float32),
+    # the tensor-core kernel's paths: one and 16 rows (split-K), a ragged
+    # last K-block, KBLK not a multiple of the 32-row slice, x rows not
+    # 16-byte aligned, the bf16 single pass with int8 values, and
+    # qwen1.5-0.5b's FFN up-projection on 2048 tokens
+    "m1-split-k": (1, 1024, 2816, 0.2, 512, 256, torch.float32, torch.float32),
+    "m16-split-k": (16, 2816, 1024, 0.2, 512, 256, torch.float32, torch.float32),
+    "ragged-last-kblock": (70, 1000, 300, 0.2, 512, 256, torch.float32, torch.float32),
+    "kblk-40": (50, 120, 90, 0.3, 40, 48, torch.float32, torch.float32),
+    "x-unaligned": (33, 101, 70, 0.3, 16, 24, torch.float32, torch.float32),
+    "bf16-x-unaligned": (20, 100, 64, 0.3, 32, 64, torch.bfloat16, torch.bfloat16),
+    "bf16-x-int8-vals": (100, 600, 300, 0.2, 512, 256, torch.bfloat16, torch.int8),
+    "ffn-2048x1024x2816": (2048, 1024, 2816, 0.2, 512, 256, torch.float32, torch.float32),
 }
 
 
@@ -202,6 +249,37 @@ def test_bitmask_matmul_kernel_within_tolerance(cuda, name):
     for want in (plain, f64):
         assert bool(((got.double() - want.double()).abs() <= tol).all()), \
             float((got.double() - want.double()).abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["one-block", "m16-split-k", "bf16-both"])
+def test_bitmask_matmul_split_k_is_deterministic(cuda, name):
+    """At small M the kernel splits the K slices across blocks and sums the
+    partials in a fixed order: two runs give the same bits."""
+    x, _, pw = _matmul_operands(name, cuda)
+    assert bmm.kernel_splits(x.shape[0], pw) > 1
+    first = bmm.bitmask_matmul(x, pw)
+    second = bmm.bitmask_matmul(x, pw)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int32), second.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_bitmask_matmul_bf16_pass_is_exact_on_integers(cuda):
+    """The one bf16 pass (x bf16, values int8): small integer x and W give
+    integer products and sums below 2^24, exact in f32 in any order, so the
+    kernel must equal the float64 product bit for bit."""
+    rng = np.random.default_rng(7)
+    w = rng.integers(-127, 128, (600, 300))
+    w[rng.random(w.shape) >= 0.2] = 0
+    wt = torch.from_numpy(w).to(torch.int8)
+    x = torch.from_numpy(rng.integers(-8, 9, (100, 600)).astype(np.float32))
+    x = x.to(torch.bfloat16).to(cuda)
+    pw = ops.pack_matmul_weights(wt).to(cuda)
+    got = bmm.bitmask_matmul(x, pw)
+    want = (x.double() @ wt.double().to(cuda)).float()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
