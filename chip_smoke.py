@@ -27,7 +27,8 @@ a. The gated one-to-all kernel against its plain version at every encode
    and 3×3 layer shape of ``CONFIG`` (12 shapes; T·N = 16·2 for the spike
    layers), random weights pruned 0.8, plus a layer whose taps are all
    dead: int32 bit-equal. Times per shape: kernel, plain version, one
-   ``F.conv2d`` (f32, TF32 off) over the replicate-padded blocks, bound.
+   ``F.conv2d`` (f32, TF32 off) over the replicate-padded blocks, bound,
+   the kernel's tiling (``g2a.last_plan()``).
 b. The fused kernel at T=16 (its streamed time loop) at every fused shape,
    hard/cold and soft/warm, bit-equal to its plain version, with times.
 c. ``CONFIG`` at ``repro.convert.emit.target_config``'s settings (soft
@@ -245,14 +246,15 @@ def phase_gated(dev, cfg, tag) -> dict:
                           generator=gen, device=dev).to(torch.uint8)
         x[..., cin:] = 0
         kwargs = dict(kout=kout, kh=kh, kw=kw, bh=bh, bw=bw)
-        out = g2a.gated_one_to_all(x, *dev_w, **kwargs)
         want = g2a.gated_one_to_all_reference(x, *dev_w, **kwargs)
+        out = g2a.gated_one_to_all(x, *dev_w, **kwargs)
         torch.cuda.synchronize()
         err = float((out.double() - want.double()).abs().max())
         max_err = max(max_err, err)
         if not bits_equal(out, want):
             raise AssertionError(f"gated kernel != plain version at {name}: max |Δ| {err}")
         ms, host_ms = device_ms(lambda: g2a.gated_one_to_all(x, *dev_w, **kwargs))
+        plan = g2a.last_plan()
         plain_ms = elapsed_ms(lambda: g2a.gated_one_to_all_reference(x, *dev_w, **kwargs))
         lib, lib_check = gated_library(x[..., :cin], wq, bh, bw)
         with sy._no_tf32():
@@ -263,7 +265,7 @@ def phase_gated(dev, cfg, tag) -> dict:
         row = {"layer": name, "x": list(x.shape), "kout": kout, "nnz": nnz,
                "live_taps": len(pw.tap_alive), "bit_equal": True, "max_abs_err": err,
                "ms": ms, "host_ms": host_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-               "library_equal": lib_exact, "bound_ms": bound, "bound_by": by}
+               "library_equal": lib_exact, "bound_ms": bound, "bound_by": by, "plan": plan}
         rows.append(row)
         print(json.dumps({"phase": "gated_vs_plain", **row, **tag}), flush=True)
     return {"rows": rows, "max_abs_err": max_err}
@@ -411,6 +413,7 @@ def phase_converted(dev, tag) -> dict:
     # (d) the main path's gated layers replayed: kernel vs plain, and times
     total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0)
     max_err, bound_by, lib_equal = 0.0, {"bytes": 0.0, "operations": 0.0}, True
+    plans = {}
     for name, (args, kwargs) in zip(("encode", "conv_block"), captured):
         out = g2a.gated_one_to_all(*args, **kwargs)
         want = g2a.gated_one_to_all_reference(*args, **kwargs)
@@ -419,6 +422,8 @@ def phase_converted(dev, tag) -> dict:
         if not bits_equal(out, want):
             raise AssertionError(f"gated kernel != plain version on the main path's {name}")
         ms, host_ms = device_ms(lambda: g2a.gated_one_to_all(*args, **kwargs))
+        plan = g2a.last_plan()
+        plans[name] = plan
         plain_ms = elapsed_ms(lambda: g2a.gated_one_to_all_reference(*args, **kwargs))
         w = det.plan.layers[name].w_q
         lib, lib_check = gated_library(args[0][..., : w.shape[2]], w, *cfg.block_hw)
@@ -433,10 +438,10 @@ def phase_converted(dev, tag) -> dict:
         print(json.dumps({"phase": "gated_layer_time", "layer": name,
                           "x": list(args[0].shape), "kout": kwargs["kout"], "ms": ms,
                           "host_ms": host_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                          "bound_ms": bound, "bound_by": by, **tag}))
+                          "bound_ms": bound, "bound_by": by, "plan": plan, **tag}))
     return {"det": det, "frames": frames, "launches": launches, "taps_launches": taps_launches,
             "total": total, "bound_by": max(bound_by, key=bound_by.get),
-            "library_equal": lib_equal, "max_abs_err": max_err}
+            "library_equal": lib_equal, "max_abs_err": max_err, "plans": plans}
 
 
 def phase_lif(dev, tag) -> dict:
@@ -835,6 +840,13 @@ def main() -> int:
         "library_ms": conv["total"]["library_ms"],
         "per": f"one frame of batch {BATCH} of the converted detector (T={CONVERTED_T}, "
                "pool_drive): sum over its 2 gated layers, encode and conv_block",
+        "design": "int8 mma.sync m16n8k32 (u8 x s8 -> s32) on the compressed weights decoded "
+                  "per block into shared memory over the live taps; the fused kernel's conv "
+                  "loop (csrc/igemm_conv.cuh: halo A tiles where C % 32 == 0 or C == 16, else "
+                  "im2col gathers; the M images folded into the pixel tiles); int32 sums "
+                  "staged for 16-byte stores",
+        "plans": conv["plans"],
+        "ptxas": ptxas.get("gated_one_to_all", []),
         "check": "int32 bit-equal to the plain version at the 12 encode/3x3 shapes, an "
                  "all-dead layer and the main path's inputs",
         "library": "F.conv2d f32, TF32 off, over the replicate-padded blocks",

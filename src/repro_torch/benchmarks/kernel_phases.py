@@ -1,19 +1,25 @@
-"""Where a block's cycles go, in the two tensor-core kernels, on the card.
+"""Where a block's cycles go, in the three tensor-core kernels, on the card.
 
     PYTHONPATH=src python -m repro_torch.benchmarks.kernel_phases
 
-Builds instrumented copies of ``csrc/fused_pipeline.cu`` and
-``csrc/bitmask_matmul.cu`` (into a temporary directory, the sources in the
-checkout untouched): thread 0 of every block reads ``clock64()`` around the
-phases of its main loop and writes the sums to a device array. Each case
-runs once on random seeded operands at the detector's and qwen1.5-0.5b's
-FFN shapes; a line per case gives the mean and the largest count over the
-blocks, in thousands of SM cycles:
+Builds instrumented copies of ``csrc/fused_pipeline.cu``,
+``csrc/gated_one_to_all.cu`` (both on an instrumented copy of their shared
+conv loop, ``csrc/igemm_conv.cuh``) and ``csrc/bitmask_matmul.cu`` (into a
+temporary directory, the sources in the checkout untouched): thread 0 of
+every block reads ``clock64()`` around the phases of its main loop and
+writes the sums to a device array. Each case runs once on random seeded
+operands at the detector's and qwen1.5-0.5b's FFN shapes; a line per case
+gives the mean and the largest count over the blocks, in thousands of SM
+cycles:
 
 * fused pipeline: ``setup`` (tap tables and the resident weights),
   ``issue`` (the next items' gathers), ``wait`` (their arrival and the
   barrier), ``mma`` (the tensor-core products), ``epi`` (drives, LIF,
   stores);
+* gated one-to-all: ``setup`` (the live taps, the ranks and the decode of
+  the block's weights), then ``issue``, ``wait``, ``mma`` as above and
+  ``epi`` (the int32 stores), at the converted detector's conv_block,
+  stage0 and stage3/4 3×3 shapes at M = 32;
 * bitmask matmul: ``prologue`` (the first ranks and slices), ``store_x``
   (decoded values to shared memory, x slices in flight), ``gather`` (ranks
   at K-block edges, value gathers), ``mma`` (products and slice sums),
@@ -39,6 +45,7 @@ import torch
 from repro_torch import backend
 from repro_torch.kernels import bitmask_matmul as bmm
 from repro_torch.kernels import fused_pipeline as fp
+from repro_torch.kernels import gated_one_to_all as g2a
 from repro_torch.kernels import ops
 
 N_BLOCKS = 4096  # counter rows; blocks past it are not counted
@@ -50,7 +57,10 @@ extern "C" int phases_clear() {
 }
 """
 DECL = "namespace {\n__device__ long long g_phases[4096][6];\n"
+CONV_DECL = "namespace igemm {\n__device__ long long g_phases[4096][6];\n"
+BLOCK = "const int b = blockIdx.x + blockIdx.y * gridDim.x;\n"
 FUSED_PHASES = ("total", "setup", "issue", "wait", "mma", "epi")
+GATED_PHASES = FUSED_PHASES
 MATMUL_PHASES = ("total", "prologue", "store_x", "gather", "mma", "wait")
 # (kh, C, Kout, t_in, t_out, (H, W)) at batch 2, 80% of the weights pruned
 FUSED_CASES = {
@@ -63,26 +73,32 @@ FUSED_CASES = {
     "stage3 3x3 T=16": (3, 256, 256, 16, 16, (18, 32)),
 }
 MATMUL_CASES = ((2048, 1024, 2816), (2048, 2816, 1024), (16, 1024, 2816))  # M, K, N
+# (kh, C, kout, (M, H, W)) at 80% of the weights pruned: the converted
+# detector's conv_block, stage0 and stage3/4 3x3 at T=16, batch 2
+GATED_CASES = {
+    "conv_block": (3, 16, 32, (32, 288, 512)),
+    "stage0 3x3": (3, 32, 32, (32, 144, 256)),
+    "stage3 3x3": (3, 256, 256, (32, 18, 32)),
+}
 
 
-def _edit(src: str, edits) -> str:
+def _edit(src: str, edits, decl: str = DECL, tail: str = TAIL) -> str:
     for old, new in edits:
         if src.count(old) != 1:
             raise RuntimeError(f"anchor not found once: {old[:60]!r}")
         src = src.replace(old, new)
-    return src.replace("namespace {\n", DECL, 1) + TAIL
+    return src.replace(decl.split("\n")[0] + "\n", decl, 1) + tail
 
 
-def fused_source() -> str:
-    src = open(os.path.join(backend.CSRC, "fused_pipeline.cu")).read()
+def conv_source() -> str:
+    """The shared conv loop with the loop phases counted: its issue, wait,
+    mma and epi counts are added into the block's row (a kernel may run the
+    loop more than once); the kernels count set-up and total."""
+    src = open(os.path.join(backend.CSRC, "igemm_conv.cuh")).read()
     return _edit(src, [
-        ("  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n",
-         "  const long long c_start = clock64();\n"
-         "  long long c_issue = 0, c_wait = 0, c_mma = 0, c_epi = 0, c_q;\n"
-         "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n"),
-        ("      load_weights<BN>(p, wsm, n0);\n  }\n  __syncthreads();\n",
-         "      load_weights<BN>(p, wsm, n0);\n  }\n  __syncthreads();\n"
-         "  const long long c_setup = clock64() - c_start;\n"),
+        ("  const bool pair = kHalo1 && halo && p.cc == 16;  // two taps per k-step\n",
+         "  const bool pair = kHalo1 && halo && p.cc == 16;  // two taps per k-step\n"
+         "  long long c_issue = 0, c_wait = 0, c_mma = 0, c_epi = 0, c_q;\n"),
         ("    issue_next();\n    cp_async_wait<kStages - 1>();  // item it has landed\n"
          "    __syncthreads();\n",
          "    c_q = clock64();\n    issue_next();\n    c_issue += clock64() - c_q;\n"
@@ -90,16 +106,59 @@ def fused_source() -> str:
          "    c_wait += clock64() - c_q;\n"),
         ("    // the tensor-core products of this item's k-steps\n    {",
          "    c_q = clock64();\n    {"),
-        ("          if (ks + 1 < nks) mul(a1, b1);\n        }\n      }\n    }\n\n",
-         "          if (ks + 1 < nks) mul(a1, b1);\n        }\n      }\n    }\n"
-         "    c_mma += clock64() - c_q;\n    c_q = clock64();\n\n"),
+        ("    if (ch == gm.nch - 1) epi(acc, ps, ntb, rp);  // the pass's convs are complete\n",
+         "    c_mma += clock64() - c_q;\n    c_q = clock64();\n"
+         "    if (ch == gm.nch - 1) epi(acc, ps, ntb, rp);\n"),
         ("    __syncthreads();  // this item's buffer is free for item it + kStages\n  }\n}",
          "    __syncthreads();\n    c_epi += clock64() - c_q;\n  }\n"
-         "  const int b = blockIdx.x + blockIdx.y * gridDim.x;\n"
+         "  " + BLOCK +
          "  if (threadIdx.x == 0 && b < 4096) {\n"
-         "    const long long v[6] = {clock64() - c_start, c_setup, c_issue, c_wait, c_mma, c_epi};\n"
-         "    for (int i = 0; i < 6; ++i) g_phases[b][i] = v[i];\n  }\n}"),
-    ])
+         "    g_phases[b][2] += c_issue;\n    g_phases[b][3] += c_wait;\n"
+         "    g_phases[b][4] += c_mma;\n    g_phases[b][5] += c_epi;\n  }\n}"),
+    ], decl=CONV_DECL, tail="")
+
+
+def _record(setup: str) -> str:
+    """Thread 0 writes the block's total and set-up counts."""
+    return ("  {\n    " + BLOCK + "    if (threadIdx.x == 0 && b < 4096) {\n"
+            "      g_phases[b][0] = clock64() - c_start;\n"
+            f"      g_phases[b][1] = {setup};\n    }}\n  }}\n}}")
+
+
+TAIL_CONV = TAIL.replace("g_phases", "igemm::g_phases")
+
+
+def fused_source() -> str:
+    src = open(os.path.join(backend.CSRC, "fused_pipeline.cu")).read()
+    return _edit(src, [
+        ("  const int tid = threadIdx.x;\n  const int n0 = blockIdx.y * BN;\n",
+         "  const long long c_start = clock64();\n"
+         "  const int tid = threadIdx.x;\n  const int n0 = blockIdx.y * BN;\n"),
+        ("      load_weights<BN>(p, wsm, n0);\n  }\n  __syncthreads();\n",
+         "      load_weights<BN>(p, wsm, n0);\n  }\n  __syncthreads();\n"
+         "  const long long c_setup = clock64() - c_start;\n"),
+        ("  conv_tiles<T>(p, gm, smem, n0, epilogue);\n}",
+         "  conv_tiles<T>(p, gm, smem, n0, epilogue);\n" + _record("c_setup")),
+    ], decl="namespace {\n", tail=TAIL_CONV)
+
+
+def gated_source() -> str:
+    src = open(os.path.join(backend.CSRC, "gated_one_to_all.cu")).read()
+    return _edit(src, [
+        ("  const int tid = threadIdx.x;\n  const int n0 = blockIdx.y * BN;\n",
+         "  const long long c_start = clock64();\n"
+         "  const int tid = threadIdx.x;\n  const int n0 = blockIdx.y * BN;\n"),
+        ("  const int n_live = *live_n, kreal = n_live * p.c;\n",
+         "  const int n_live = *live_n, kreal = n_live * p.c;\n"
+         "  long long c_setup = clock64() - c_start;\n"),
+        ("    fill_tables(p, gm, halo, tdh, tdw, toff, units);\n",
+         "    const long long c_s = clock64();\n"
+         "    fill_tables(p, gm, halo, tdh, tdw, toff, units);\n"),
+        ("    const bool add = kbase > 0;\n",
+         "    c_setup += clock64() - c_s;\n    const bool add = kbase > 0;\n"),
+        ("      store(acc[0], ps, rp, add);\n    });\n  }\n}",
+         "      store(acc[0], ps, rp, add);\n    });\n  }\n" + _record("c_setup")),
+    ], decl="namespace {\n", tail=TAIL_CONV)
 
 
 def matmul_source() -> str:
@@ -131,8 +190,11 @@ def matmul_source() -> str:
 def build(out_dir: str) -> dict:
     """{library name: CDLL} of the instrumented copies."""
     shutil.copy(os.path.join(backend.CSRC, "common.cuh"), out_dir)
+    with open(os.path.join(out_dir, "igemm_conv.cuh"), "w") as f:
+        f.write(conv_source())
     procs = {}
-    for name, src in (("fused_pipeline", fused_source()), ("bitmask_matmul", matmul_source())):
+    for name, src in (("fused_pipeline", fused_source()), ("gated_one_to_all", gated_source()),
+                      ("bitmask_matmul", matmul_source())):
         path = os.path.join(out_dir, f"{name}.cu")
         with open(path, "w") as f:
             f.write(src)
@@ -176,6 +238,7 @@ def run(seed: int = 0) -> dict:
             backend._libs.update(libs)
             bmm._launcher.cache_clear()
             fp._launcher.cache_clear()
+            g2a._launcher.cache_clear()
             for m, k, n in MATMUL_CASES:
                 w = torch.randn((k, n), generator=gen, device=dev)
                 w[torch.rand((k, n), generator=gen, device=dev) >= 0.2] = 0
@@ -197,10 +260,24 @@ def run(seed: int = 0) -> dict:
                     libs["fused_pipeline"],
                     lambda: fp.fused_pipeline(x, live.w, live.taps, aff, None, **kw),
                     FUSED_PHASES)
+            for name, (kh, cin, kout, (m, h, w)) in GATED_CASES.items():
+                wq = torch.randint(-127, 128, (kh, kh, cin, kout), generator=gen, device=dev)
+                wq[torch.rand(wq.shape, generator=gen, device=dev) < 0.8] = 0
+                pw = ops.pack_conv_weights(wq.to(torch.int8).cpu().numpy(),
+                                           kblk=min(128, -(-kout // 8) * 8))
+                dev_w = ops.packed_tensors(pw, dev)
+                x = torch.randint(0, 2, (m, h, w, pw.cin), generator=gen,
+                                  device=dev).to(torch.uint8)
+                kw = dict(kout=kout, kh=kh, kw=kh, bh=18, bw=32)
+                rows[f"gated {name}"] = phases(
+                    libs["gated_one_to_all"], lambda: g2a.gated_one_to_all(x, *dev_w, **kw),
+                    GATED_PHASES)
+                rows[f"gated {name}"]["plan"] = g2a.last_plan()
         finally:
             backend._libs.update(saved)
             bmm._launcher.cache_clear()
             fp._launcher.cache_clear()
+            g2a._launcher.cache_clear()
     return {"device": torch.cuda.get_device_name(0), "kcycles_mean_max": rows}
 
 
@@ -209,7 +286,8 @@ def main() -> int:
     result = run()
     for case, row in result["kcycles_mean_max"].items():
         print(f"{case:28s} " + ", ".join(f"{k} {v[0]}/{v[1]}" if isinstance(v, list)
-                                         else f"{k} {v}" for k, v in row.items()))
+                                         else f"{k} {v}" for k, v in row.items()
+                                         if k != "plan"))
     print(json.dumps({"phase": "kernel_phases", **result}))
     return 0
 

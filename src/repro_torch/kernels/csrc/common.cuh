@@ -3,14 +3,6 @@
 #pragma once
 #include <stdint.h>
 
-// unsigned bytes of a (inputs: spikes or u8 pixels) times signed bytes of b
-// (weights), summed into c: exact in int32
-__device__ __forceinline__ int dp4a_us(uint32_t a, int b, int c) {
-  int d;
-  asm("dp4a.u32.s32 %0, %1, %2, %3;" : "=r"(d) : "r"(a), "r"(b), "r"(c));
-  return d;
-}
-
 // The rank walk of the bitmask decode, shared by every packed-weight kernel.
 //
 // One K-block's mask ``mk`` is (taps, C/8, KBLK) bytes: bit c%8 of byte
@@ -22,9 +14,10 @@ __device__ __forceinline__ int dp4a_us(uint32_t a, int b, int c) {
 //   vals[rows[r] + (set bits of row r below k)]   when its bit is set.
 // Each thread counts the 8 rows of one (tap, c/8) byte row at once (8
 // popcounts per 4-byte word), then the block scans: every thread sums a
-// contiguous segment, thread 0 scans the NT segment sums. All NT threads
-// of the block call it; ``partial`` is NT ints of shared memory. Needs
-// KBLK % 4 == 0 and a 4-byte aligned ``mk``.
+// contiguous segment, then warp shuffles scan the NT segment sums. All NT
+// threads of the block call it; ``partial`` is NT ints of shared memory. Needs
+// KBLK % 4 == 0, a 4-byte aligned ``mk`` and NT a multiple of 32, at most
+// 1024.
 template <int NT>
 __device__ void kblock_row_ranks(const uint8_t* mk, int taps, int c, int kblk,
                                  int* rows, int* partial) {
@@ -45,18 +38,29 @@ __device__ void kblock_row_ranks(const uint8_t* mk, int taps, int c, int kblk,
   const int r0 = min((int)threadIdx.x * seg, nrows), r1 = min(r0 + seg, nrows);
   int run = 0;
   for (int r = r0; r < r1; ++r) run += rows[r];
-  partial[threadIdx.x] = run;
+  // exclusive scan of the NT segment sums: within each warp by shuffles,
+  // then over the warps' totals
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) partial[warp] = incl;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    int total = 0;
-    for (int i = 0; i < NT; ++i) {
-      const int v = partial[i];
-      partial[i] = total;
-      total += v;
+  if (warp == 0) {
+    const int tot = lane < NT / 32 ? partial[lane] : 0;
+    int wincl = tot;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, wincl, o);
+      if (lane >= o) wincl += v;
     }
+    if (lane < NT / 32) partial[NT / 32 + lane] = wincl - tot;
   }
   __syncthreads();
-  run = partial[threadIdx.x];
+  run = partial[NT / 32 + warp] + incl - run;
   for (int r = r0; r < r1; ++r) {
     const int v = rows[r];
     rows[r] = run;

@@ -1,5 +1,6 @@
 // Gated one-to-all block convolution for Hopper (sm_90a) on the paper's
-// bitmask-compressed weights, decoded inside the kernel.
+// bitmask-compressed weights, decoded inside the kernel, on the int8
+// tensor cores.
 //
 // Replaces the TPU kernel src/repro/kernels/gated_one_to_all.py
 // (gated_one_to_all_pallas, body _kernel): the unfused kernel executor's
@@ -11,182 +12,184 @@
 //                     x[m, clamp(y+dy), clamp(x+dx), c] * W[tap, c, k]
 //
 // with the neighbour coordinates clamped into the pixel's bh x bw block
-// (block convolution: each block replicate-padded at its own border), u8
-// inputs (binary spikes, or the encode layer's u8 pixels, the exact fold of
-// its 8 bit-serial planes) times int8 weights into int32 with dp4a: exact.
+// (block convolution), u8 inputs (binary spikes, or the encode layer's u8
+// pixels) times int8 weights into int32: exact in any order (the largest
+// |sum| is 255*127*49*C < 2^31 for C <= 512).
 //
-// The weights stay compressed in device memory: maskp (one bit per weight)
-// and the packed nonzero values of each K-block, in (tap, c, k) order. Each
-// block owns one slice of up to 32 output channels of one K-block. It
-//  1. lists the K-block's live taps (tap_any[kb, tap] != 0; a dead tap is
-//     skipped, as the TPU kernel's pl.when skips it),
-//  2. ranks every (tap, channel) row of the K-block's mask (common.cuh),
-//  3. decodes its slice of the live taps into shared memory once,
-//  4. walks pixel tiles gridDim.x apart with that slice: one thread per
-//     4 output channels of kPix pixels, its accumulators in registers.
-// The grid is one wave of resident blocks (by the occupancy the launch
-// reports), so no block waits on a second wave.
-// The TPU kernel decodes a whole K-block into VMEM scratch; at C=256 and
-// KBLK=128 a 3x3 K-block is 288 KB, more than a block's 227 KB of shared
-// memory, hence the slices.
+// The conv is igemm_conv.cuh's, the fused kernel's conv of one time step,
+// with the M images in place of the time steps and the int32 sums written
+// out in place of the LIF epilogue:
+//  * a GEMM per image on mma.sync m16n8k32 u8 x s8 -> s32: rows = a pixel
+//    tile, columns = a tile of 16, 32 or 64 output channels, K-dim = the
+//    live taps x C, padded to 32. The M images fold into the pixel tiles,
+//    one image per pass, so that every map fills the card with persistent
+//    blocks (batching 4 images per pass, sharing the B fragments as the
+//    fused kernel batches time steps, measured no faster at any shape of
+//    the detector and slower at stage2-4, PERF.md);
+//  * the B operand is the compressed weights: only maskp, vals and tap_any
+//    are read, as the TPU kernel does. Each persistent block lists the taps
+//    alive in any K-block its channel tile touches (tap_any; a tap dead in
+//    one of those K-blocks has zero weights there, so the sum is the same:
+//    the TPU kernel's pl.when(tap_any > 0) at tile granularity), ranks
+//    those K-blocks' mask rows and decodes its tile over the live K-dim
+//    into shared memory once (common.cuh's rank walk; value indices clipped
+//    to VPAD - 1 like the TPU gather), then walks its pixel tiles and
+//    images with it. A tile whose decoded K-dim does not fit is decoded one
+//    K-dim segment at a time, each segment's sums added into the output;
+//  * the A operand: a clamped halo tile read by ldmatrix at each tap's
+//    shift wherever it fits (C % 32 == 0, and C == 16 with two taps'
+//    16-byte rows per k-step: Params::kHalo = kHaloAny), else im2col
+//    cp.async gathers (1x1 kernels, C of 8 or 24 ..., K-dim segments);
+//  * the int32 sums of each image pass through shared memory, so that each
+//    warp writes whole lines of (M, H, W, kout) with 16-byte stores
+//    (element by element where kout % 4 != 0).
 //
 // What bounds it on this card: bytes. The int32 output dominates (4 bytes
-// per output value against 1 byte per input pixel-channel, and a few KB of
-// compressed weights); the int8 products take microseconds at the card's
-// peak. This first kernel does the products with scalar dp4a and no tensor
-// cores, and writes each output once, coalesced along the channels.
+// per output value against 1 byte per input pixel-channel and a few KB of
+// compressed weights); the int8 products of the live taps take a fraction
+// of that at the tensor cores' rate.
 //
 // Layouts (all contiguous):
-//  x       (M, H, W, C)          uint8, C % 8 == 0
+//  x       (M, H, W, C)           uint8, C % 8 == 0
 //  maskp   (KB, kh*kw, C/8, KBLK) uint8, KBLK % 4 == 0
-//  vals    (KB, VPAD)            int8
-//  tap_any (KB, kh*kw)           int32
-//  out     (M, H, W, kout)       int32, kout <= KB*KBLK
+//  vals    (KB, VPAD)             int8
+//  tap_any (KB, kh*kw)            int32
+//  out     (M, H, W, kout)        int32, kout <= KB*KBLK
+//
+// One image's H*W must stay below 2^31 (the loop's pixel indices are 32
+// bit); the launch refuses larger images (such an image's input alone is
+// 16 GB at C = 8).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include <algorithm>
+
+#include "igemm_conv.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxTaps = 49;
-constexpr int kMaxSlice = 32;  // output channels a block decodes and owns
-constexpr int kPix = 4;        // pixels a thread accumulates at once
+using namespace igemm;
 
-struct Params {
-  const uint32_t* x;
-  const uint8_t* maskp;
-  const int8_t* vals;
+struct Params : Conv {
+  static constexpr int kHalo = kHaloAny;  // halo tiles wherever they fit
   const int* tap_any;
   int* out;
-  long long npix;  // M*H*W
-  int h, w, c, kout, kblk, vpad;
-  int kw, pad, bh, bw, taps;
-  int kc;             // output channels per slice: a multiple of 4, <= 32
-  int slices_per_kb;  // ceil(KBLK / kc)
 };
 
-__global__ void __launch_bounds__(kThreads) gated_one_to_all_kernel(const Params p) {
-  extern __shared__ int4 smem4[];
-  __shared__ int partial[kThreads];
-  __shared__ int live[kMaxTaps];
-  __shared__ int n_live;
-  const int c = p.c, c4 = c / 4, c8 = c / 8;
-  const int kb = blockIdx.y / p.slices_per_kb;
-  const int kin0 = (blockIdx.y % p.slices_per_kb) * p.kc;  // slice offset in its K-block
-  const int kc = min(p.kc, p.kblk - kin0);  // the last slice of a K-block may be short
-  const uint8_t* mk = p.maskp + (long long)kb * p.taps * c8 * p.kblk;
-  // shared memory: the decoded slice (taps, C/4, kc, 4) int8 (live taps
-  // first), then one int per (tap, channel) row of the K-block
-  int8_t* wsm = reinterpret_cast<int8_t*>(smem4);
-  int* rows = reinterpret_cast<int*>(wsm + p.taps * c * p.kc);
+// The tiles ask for 2 blocks per SM (at most 128 registers a thread; 3
+// and 85 for the 16-channel tile, as in the fused kernel): their items are
+// short, and a second block hides one block's barriers.
+template <int NI, int WM, int WN>
+__global__ void __launch_bounds__(kThreads, WN * 8 * NI == 16 ? 3 : 2)
+    gated_one_to_all_kernel(const Params p) {
+  using T = Tile<1, NI, WM, WN>;  // one image per pass
+  constexpr int BP = T::BP, BN = T::BN;
+  extern __shared__ __align__(16) uint8_t smem[];
+  int* stage = reinterpret_cast<int*>(smem + p.off_stage);  // [BP][SF] int32
+  int* live_n = reinterpret_cast<int*>(smem + p.off_extra);
+  int* tdh = reinterpret_cast<int*>(smem + p.off_taps);  // [kMaxTaps] x 3
+  int* tdw = tdh + kMaxTaps;
+  int* toff = tdw + kMaxTaps;
+  int* units = reinterpret_cast<int*>(smem + p.off_units);
+  const int tid = threadIdx.x;
+  const int n0 = blockIdx.y * BN;
+  const bool halo = p.halo;
 
-  // 1. the K-block's live taps, in tap order
-  if (threadIdx.x == 0) {
+  // the taps alive in any K-block the channel tile touches, in tap order
+  if (tid == 0) {
+    const int kb0 = n0 / p.kblk, kb1 = (min(n0 + BN, p.kp) - 1) / p.kblk;
     int n = 0;
-    for (int t = 0; t < p.taps; ++t)
-      if (__ldg(p.tap_any + kb * p.taps + t) != 0) live[n++] = t;
-    n_live = n;
-  }
-  // 2. the value index of every (tap, channel) row's first nonzero
-  kblock_row_ranks<kThreads>(mk, p.taps, c, p.kblk, rows, partial);
-  // 3. decode the slice: a set bit's value index is its rank in the
-  //    K-block's (tap, channel, k) order; channels past the slice are 0
-  const int8_t* vk = p.vals + (long long)kb * p.vpad;
-  for (int e = threadIdx.x; e < n_live * c; e += kThreads) {
-    const int l = e / c, ch = e % c, bit = ch & 7;
-    const int tp = live[l];
-    const uint32_t* row =
-        reinterpret_cast<const uint32_t*>(mk + ((long long)tp * c8 + ch / 8) * p.kblk);
-    int idx = rows[tp * c + ch];
-    for (int q4 = 0; q4 < kin0 / 4; ++q4)  // set bits of the row before the slice
-      idx += __popc((__ldg(row + q4) >> bit) & 0x01010101u);
-    int8_t* dst = wsm + (l * c4 + ch / 4) * p.kc * 4 + (ch & 3);
-    for (int kk = 0; kk < p.kc; kk += 4) {
-      const uint32_t word = kk < kc ? __ldg(row + (kin0 + kk) / 4) >> bit : 0u;
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        int8_t wv = 0;
-        if ((word >> (8 * b)) & 1) {
-          wv = __ldg(vk + min(idx, p.vpad - 1));  // clipped like the TPU gather
-          ++idx;
-        }
-        dst[(kk + b) * 4] = wv;
+    for (int t = 0; t < p.taps_total; ++t) {
+      bool any = false;
+      for (int kb = kb0; kb <= kb1; ++kb) any |= __ldg(p.tap_any + kb * p.taps_total + t) != 0;
+      if (any) {
+        tdh[n] = t / p.kw - p.pad;
+        tdw[n] = t % p.kw - p.pad;
+        ++n;
       }
     }
+    *live_n = n;
   }
   __syncthreads();
+  const int n_live = *live_n, kreal = n_live * p.c;
+  const int kpad = round_up(kreal > 0 ? kreal : 32, 32);  // all dead: one k-step of zeros
 
-  // 4. the block's pixel tiles: q threads per pixel lane, 4 channels each,
-  //    kPix pixels per thread (lanes apart, so a warp's stores stay
-  //    contiguous): every weight word read from shared memory feeds kPix
-  //    independent dp4a chains
-  const int q = p.kc / 4;
-  const int lanes = kThreads / q;  // pixel lanes per block
-  const int lane = threadIdx.x / q, quad = threadIdx.x % q;
-  const long long k0 = (long long)kb * p.kblk + kin0 + 4 * quad;
-  if (lane >= lanes || 4 * quad >= kc || k0 >= p.kout) return;
-  const bool full = (p.kout % 4 == 0);  // all 4 channels exist: one int4 store
-  const long long ppt = (long long)lanes * kPix;  // pixels per tile
-  const long long ntiles = (p.npix + ppt - 1) / ppt;
-  const int4* wq = smem4 + quad;
-  for (long long tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-    const long long pix0 = tile * ppt + lane;
-    if (pix0 >= p.npix) break;
-    const uint32_t* img[kPix];  // the pixel's image
-    int hi[kPix], wi[kPix], h_lo[kPix], w_lo[kPix];
+  // an image's int32 sums of a pass -> out, through the staging tile;
+  // ``add``: a later K-dim segment, added to the earlier ones' sums (each
+  // thread reads back only what it wrote itself)
+  auto store = [&](const int (&acc)[T::NI][4], int t, const int* rp, bool add) {
 #pragma unroll
-    for (int j = 0; j < kPix; ++j) {
-      const long long pix = min(pix0 + (long long)j * lanes, p.npix - 1);
-      wi[j] = (int)(pix % p.w);
-      hi[j] = (int)((pix / p.w) % p.h);
-      img[j] = p.x + (pix / ((long long)p.w * p.h)) * p.h * p.w * c4;
-      h_lo[j] = (hi[j] / p.bh) * p.bh;
-      w_lo[j] = (wi[j] / p.bw) * p.bw;
-    }
-    int acc[kPix][4];
+    for (int ni = 0; ni < T::NI; ++ni)
 #pragma unroll
-    for (int j = 0; j < kPix; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[j][i] = 0;
-    for (int l = 0; l < n_live; ++l) {
-      const int tap = live[l];
-      const int dy = tap / p.kw - p.pad, dx = tap % p.kw - p.pad;
-      const uint32_t* xp[kPix];
-#pragma unroll
-      for (int j = 0; j < kPix; ++j) {
-        const int hh = min(max(hi[j] + dy, h_lo[j]), h_lo[j] + p.bh - 1);
-        const int ww = min(max(wi[j] + dx, w_lo[j]), w_lo[j] + p.bw - 1);
-        xp[j] = img[j] + ((long long)hh * p.w + ww) * c4;
-      }
-      const int4* wp = wq + l * c4 * q;
-      for (int cq = 0; cq < c4; ++cq) {
-        const int4 wv = wp[cq * q];
-#pragma unroll
-        for (int j = 0; j < kPix; ++j) {
-          const uint32_t xv = __ldg(xp[j] + cq);
-          acc[j][0] = dp4a_us(xv, wv.x, acc[j][0]);
-          acc[j][1] = dp4a_us(xv, wv.y, acc[j][1]);
-          acc[j][2] = dp4a_us(xv, wv.z, acc[j][2]);
-          acc[j][3] = dp4a_us(xv, wv.w, acc[j][3]);
+      for (int e = 0; e < 4; e += 2)
+        *reinterpret_cast<int2*>(stage + T::row(e) * T::SF + T::col(ni, e)) =
+            make_int2(acc[ni][e], acc[ni][e + 1]);
+    __syncthreads();
+    int* dst = p.out + (long long)t * p.npix * p.kout;
+    const bool vec = p.kout % 4 == 0;
+    for (int e = tid; e < BP * BN / 4; e += kThreads) {
+      const int r = e / (BN / 4), c = (e % (BN / 4)) * 4;
+      const int pix = rp[r];
+      if (pix < 0 || n0 + c >= p.kout) continue;
+      int4 val = *reinterpret_cast<const int4*>(stage + r * T::SF + c);
+      int* d = dst + (long long)pix * p.kout + n0 + c;
+      if (vec) {
+        if (add) {
+          const int4 o = *reinterpret_cast<const int4*>(d);
+          val = make_int4(val.x + o.x, val.y + o.y, val.z + o.z, val.w + o.w);
         }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kPix; ++j) {
-      const long long pix = pix0 + (long long)j * lanes;
-      if (pix >= p.npix) break;
-      int* o = p.out + pix * p.kout + k0;
-      if (full) {
-        *reinterpret_cast<int4*>(o) = make_int4(acc[j][0], acc[j][1], acc[j][2], acc[j][3]);
+        *reinterpret_cast<int4*>(d) = val;
       } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          if (4 * quad + i < kc && k0 + i < p.kout) o[i] = acc[j][i];
+        const int v4[4] = {val.x, val.y, val.z, val.w};
+        for (int j = 0; j < 4 && n0 + c + j < p.kout; ++j) d[j] = add ? d[j] + v4[j] : v4[j];
       }
     }
+    __syncthreads();
+  };
+
+  for (int kbase = 0; kbase < kpad; kbase += p.kseg) {  // one segment unless it does not fit
+    const int klen = min(p.kseg, kpad - kbase);
+    const Geo gm{n_live, kreal, kbase, klen, halo ? p.c / p.cc : (klen + p.kc - 1) / p.kc};
+    __syncthreads();  // the previous segment's tables and weights are no longer read
+    fill_tables(p, gm, halo, tdh, tdw, toff, units);
+    decode_weights<BN>(p, gm, smem, n0, tdh, tdw, reinterpret_cast<int*>(smem + p.off_rows),
+                       reinterpret_cast<int*>(smem + p.off_partial));
+    const bool add = kbase > 0;
+    conv_tiles<T>(p, gm, smem, n0, [&](int (&acc)[1][T::NI][4], int ps, int, const int* rp) {
+      store(acc[0], ps, rp, add);
+    });
   }
+}
+
+// The plan of the last launch, for diagnostics (launch_persistent).
+int g_last_plan[kPlanInts];
+
+template <int NI, int WM, int WN>
+int launch_tile(Params& p, cudaStream_t s) {
+  using T = Tile<1, NI, WM, WN>;
+  const int smem = plan_smem(p, 1, T::BP, T::BN, true, 16, true);
+  return launch_persistent<T>(gated_one_to_all_kernel<NI, WM, WN>, p, smem, s, g_last_plan);
+}
+
+// Tiles by shape, as the fused kernel's launch() chooses them for one step
+// per pass: 128 pixels x 16 or 32 channels for narrow layers, 64 x 64 for
+// wide ones, or 32 x 64 where 64-pixel tiles would leave SMs idle.
+int launch(Params& p, int m, cudaStream_t s) {
+  const long long hw = p.npix;
+  if (hw * m < 0x7fffffffLL) {  // (M, H, W) as one step of M images
+    p.t_in = 1;
+    p.npix = hw * m;
+  } else {
+    p.t_in = m;
+  }
+  if (p.kout <= 16) return launch_tile<2, 8, 1>(p, s);
+  if (p.kout <= 32) return launch_tile<4, 8, 1>(p, s);
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const long long blocks64 = ((hw * m + 63) / 64) * ((p.kout + 63) / 64);
+  if (blocks64 >= (sms > 0 ? sms : 132)) return launch_tile<4, 4, 2>(p, s);
+  return launch_tile<2, 2, 4>(p, s);
 }
 
 }  // namespace
@@ -195,69 +198,37 @@ extern "C" int gated_one_to_all_launch(
     const void* x, const void* maskp, const void* vals, const void* tap_any,
     void* out, int m, int h, int w, int c, int kout, int kb_total, int kblk,
     int vpad, int kh, int kw, int bh, int bw, void* stream) {
-  if (m < 0 || h < 1 || w < 1 || c < 8 || c % 8 != 0 || kblk < 4 || kblk % 4 != 0 ||
-      kb_total < 1 || kout < 1 || kout > kb_total * kblk || vpad < 1 || kh != kw ||
-      kh % 2 != 1 || kh * kw > kMaxTaps || bh < 1 || bw < 1 || h % bh != 0 ||
-      w % bw != 0)
+  if (m < 0 || h < 1 || w < 1 || c < 8 || c % 8 != 0 || c > 0xffff || kblk < 4 ||
+      kblk % 4 != 0 || kb_total < 1 || kout < 1 || kout > kb_total * kblk || vpad < 1 ||
+      kh != kw || kh % 2 != 1 || kh * kw > kMaxTaps || bh < 1 || bw < 1 || h % bh != 0 ||
+      w % bw != 0 || (long long)h * w >= 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
+  if (m == 0) return 0;
   Params p{};
-  p.x = static_cast<const uint32_t*>(x);
+  p.x = static_cast<const uint8_t*>(x);
   p.maskp = static_cast<const uint8_t*>(maskp);
   p.vals = static_cast<const int8_t*>(vals);
   p.tap_any = static_cast<const int*>(tap_any);
   p.out = static_cast<int*>(out);
-  p.npix = (long long)m * h * w;
+  p.npix = (long long)h * w;  // one image; launch() folds M in
   p.h = h;
-  p.w = w;
+  p.w_ = w;
   p.c = c;
   p.kout = kout;
-  p.kblk = kblk;
-  p.vpad = vpad;
+  p.kp = kb_total * kblk;
   p.kw = kw;
   p.pad = (kh - 1) / 2;
   p.bh = bh;
   p.bw = bw;
-  p.taps = kh * kw;
-  if (p.npix == 0) return 0;
+  p.kblk = kblk;
+  p.vpad = vpad;
+  p.taps_total = kh * kw;
+  p.n_live = kh * kw;  // the plan's bound: each block narrows to its tile's live taps
+  for (int t = 0; t < kh * kw; ++t) p.taps[t] = t;
+  return launch(p, m, static_cast<cudaStream_t>(stream));
+}
 
-  // the slice width: 32 channels, narrower where the K-block is or where
-  // the decoded slice would crowd shared memory (>= 3 blocks per SM)
-  int kc = kblk < kMaxSlice ? kblk : kMaxSlice;
-  auto smem_for = [&](int k) {
-    return (size_t)p.taps * c * k + (size_t)p.taps * c * sizeof(int);
-  };
-  while (kc > 4 && kc % 8 == 0 && smem_for(kc) > 72 * 1024) kc /= 2;
-  const size_t smem = smem_for(kc);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  p.kc = kc;
-  p.slices_per_kb = (kblk + kc - 1) / kc;
-  // slices holding at least one of the kout channels (K-blocks are
-  // padded past kout)
-  int slices = 0;
-  for (int kbi = 0; kbi < kb_total; ++kbi)
-    for (int s = 0; s < p.slices_per_kb; ++s)
-      if (kbi * kblk + s * kc < kout) slices = kbi * p.slices_per_kb + s + 1;
-
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        gated_one_to_all_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  int per_sm = 0;
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gated_one_to_all_kernel, kThreads,
-                                                smem);
-  const long long ppt = (long long)(kThreads / (kc / 4)) * kPix;
-  const long long tiles = (p.npix + ppt - 1) / ppt;
-  // one wave of resident blocks in all, each decoding its slice once and
-  // then walking its share of the pixel tiles
-  long long bx = ((long long)(per_sm > 0 ? per_sm : 1) * (sms > 0 ? sms : 132) + slices - 1) /
-                 slices;
-  if (bx > tiles) bx = tiles;
-  if (bx > 65535) bx = 65535;
-  dim3 grid((unsigned)bx, (unsigned)slices);
-  gated_one_to_all_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return (int)cudaGetLastError();
+// The tiling of the last launch: see launch_persistent.
+extern "C" void gated_one_to_all_last_plan(int* out) {
+  std::copy(g_last_plan, g_last_plan + kPlanInts, out);
 }

@@ -4,15 +4,18 @@
 Counterpart of ``repro/kernels/gated_one_to_all.py``
 (``gated_one_to_all_pallas``). :func:`gated_one_to_all` is the wrapper: on
 a CUDA tensor it launches ``csrc/gated_one_to_all.cu`` (built with ``nvcc``
-for ``sm_90a``, see :mod:`repro_torch.backend`), which decodes the packed
-weights inside the kernel and skips dead taps; on a CPU tensor it runs
+for ``sm_90a``, see :mod:`repro_torch.backend`); on a CPU tensor it runs
 :func:`gated_one_to_all_reference`, the plain PyTorch version beside it.
 There is no other route: a CUDA tensor never falls back to the plain
 version, and a failed build or launch raises.
 
-Both compute integers exactly (u8 × int8 into int32 in the kernel; integer-
-valued partial sums below 2^24 in the plain version), so they agree bit for
-bit on any device.
+The kernel runs the conv of each image as an int8 GEMM on the tensor cores
+(``mma.sync`` u8 × s8 → s32, the fused kernel's conv loop from
+``csrc/igemm_conv.cuh``): each block decodes its output-channel tile of the
+packed weights over the taps alive in its K-blocks into shared memory once
+and reuses it over its pixel tiles and images. Both versions compute
+integers exactly (int32 in the kernel; integer-valued partial sums in the
+plain version), so they agree bit for bit on any device.
 """
 from __future__ import annotations
 
@@ -123,6 +126,21 @@ def gated_one_to_all(
     backend.check_launch(err, KERNEL)
     backend.launches[KERNEL] += 1
     return out
+
+
+PLAN_KEYS = ("smem_bytes", "steps_per_pass", "tile_pixels", "tile_channels", "halo",
+             "chunk", "chunks_per_pass", "grid_x", "grid_y", "blocks_per_sm", "k_segment")
+
+
+def last_plan() -> dict:
+    """The tiling of this process's last kernel launch, for diagnostics:
+    shared memory, images per pass (``steps_per_pass``, always 1: the
+    images fold into the pixel tiles), tile shape, halo mode, chunk
+    (channels in halo mode, else K-dim bytes), chunks per pass, grid,
+    blocks per SM and the K-dim bytes of weights decoded at once."""
+    out = (ctypes.c_int * len(PLAN_KEYS))()
+    backend.load_kernels()[KERNEL].gated_one_to_all_last_plan(out)
+    return dict(zip(PLAN_KEYS, out))
 
 
 @functools.cache

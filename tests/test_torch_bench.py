@@ -217,13 +217,33 @@ def test_benchmarks_default_to_the_card(module, tmp_path):
 
 
 def test_kernel_phases_instruments_both_kernels():
-    """The phase counter's copies of the two tensor-core kernels find every
+    """The phase counter's copies of the fused and matmul kernels find every
     anchor in the sources (a source edit that moves one fails here, on the
-    CPU, before a chip run) and keep the kernels' entry points."""
+    CPU, before a chip run) and keep the kernels' entry points. The fused
+    kernel's loop phases are counted in the shared conv loop's copy."""
     from repro_torch.benchmarks import kernel_phases as kp
 
-    for name, src in (("fused_pipeline", kp.fused_source()),
-                      ("bitmask_matmul", kp.matmul_source())):
-        assert src.count("clock64()") >= 8, name
-        assert 'extern "C" int phases_read' in src and "g_phases[b][i] = v[i]" in src
+    conv = kp.conv_source()
+    for name, src, loop in (("fused_pipeline", kp.fused_source(), conv),
+                            ("bitmask_matmul", kp.matmul_source(), "")):
+        assert (src + loop).count("clock64()") >= 8, name
+        assert 'extern "C" int phases_read' in src
+        assert ("g_phases[b][i] = v[i]" in src) != ("g_phases[b][1] = c_setup" in src)
         assert f'extern "C" int {name}_launch' in src
+
+
+def test_kernel_phases_instruments_the_gated_kernel():
+    """The gated kernel's copy counts its set-up (live taps, ranks, decode,
+    once per K-dim segment) and total; the shared loop's copy adds its four
+    loop phases into the same block row, once per call."""
+    from repro_torch.benchmarks import kernel_phases as kp
+
+    src, conv = kp.gated_source(), kp.conv_source()
+    assert src.count("clock64()") == 5 and "c_setup += clock64() - c_s" in src
+    assert 'extern "C" int gated_one_to_all_launch' in src
+    assert 'extern "C" int phases_read' in src and "igemm::g_phases" in src
+    assert conv.count("clock64()") == 8 and conv.count("+= c_") == 4
+    assert "__device__ long long g_phases" in conv and "phases_read" not in conv
+    assert set(kp.GATED_PHASES) == set(kp.FUSED_PHASES)
+    assert {(c[1], c[3]) for c in kp.GATED_CASES.values()} >= {(16, (32, 288, 512)),
+                                                               (256, (32, 18, 32))}

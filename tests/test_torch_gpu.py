@@ -124,7 +124,8 @@ def test_fused_pipeline_kernel_equals_plain_version(cuda, name, mode):
 
 
 GATED_CASES = {
-    # kh, cin, kout, density, kblk, u8 input, dead taps, (m, h, w), block
+    # kh, cin, kout, density, kblk, u8 input, dead taps (a tap, or (tap, k0,
+    # k1): the tap dead in output channels k0:k1 only), (m, h, w), block
     "3x3-c8-k16": (3, 8, 16, 0.2, 8, False, (), (2, 18, 32), (18, 32)),
     "3x3-c16-k8": (3, 16, 8, 0.5, 8, False, (), (2, 18, 32), (18, 32)),
     "3x3-c3-k40": (3, 3, 40, 0.3, 8, False, (), (2, 18, 32), (18, 32)),
@@ -138,6 +139,27 @@ GATED_CASES = {
     "dead-taps": (3, 16, 32, 0.4, 32, False, (0, 2, 4, 6), (2, 12, 16), (6, 8)),
     "encode-u8": (3, 3, 16, 0.7, 16, True, (), (2, 36, 64), (18, 32)),
     "wide-c256-k256": (3, 256, 256, 0.2, 128, False, (), (4, 18, 32), (18, 32)),
+    # the tensor-core tilings: M not a multiple of 4 (the images fold into
+    # the pixel tiles, so a tile may span two images); C = 16 (two taps per
+    # k-step) on a multi-block map, conv_block's shape class; a 64-channel
+    # tile over four K-blocks of 16 with a tap dead in one of them and alive
+    # in the others; kout tails; 5x5 and 7x7 kernels; a 7x7 at C = 256 whose
+    # decoded weights exceed shared memory (decoded and summed in K-dim
+    # segments, A from im2col gathers); M = 0
+    "m5-c256-k256": (3, 256, 256, 0.2, 128, False, (), (5, 18, 32), (18, 32)),
+    "m6-c256-k256": (3, 256, 256, 0.2, 128, False, (), (6, 18, 32), (18, 32)),
+    "c16-multi-block-m8": (3, 16, 32, 0.3, 32, False, (), (8, 36, 64), (18, 32)),
+    "c16-one-image": (3, 16, 32, 0.3, 32, False, (4,), (1, 36, 64), (18, 32)),
+    "tile64-kblk16-tap-dead-in-one": (3, 32, 64, 0.3, 16, False, ((4, 0, 16), (0, 16, 64)),
+                                      (4, 18, 32), (18, 32)),
+    "kout40-tail-m4": (3, 16, 40, 0.3, 8, False, (), (4, 18, 32), (18, 32)),
+    "kout6-tail-m5": (3, 8, 6, 0.5, 8, False, (), (5, 12, 16), (6, 8)),
+    "kout6-tail-large-map": (3, 8, 6, 0.5, 8, False, (), (2, 96, 128), (6, 8)),
+    "5x5-c64": (5, 64, 64, 0.2, 64, False, (), (4, 18, 32), (18, 32)),
+    "7x7-c64": (7, 64, 32, 0.2, 32, False, (), (1, 36, 64), (18, 32)),
+    "7x7-c256-segmented": (7, 256, 16, 0.2, 16, False, (), (1, 18, 32), (18, 32)),
+    "7x7-c256-k64-segmented-m4": (7, 256, 64, 0.1, 64, False, (), (4, 18, 32), (18, 32)),
+    "m0": (3, 16, 32, 0.3, 32, False, (), (0, 18, 32), (18, 32)),
 }
 
 
@@ -148,8 +170,9 @@ def test_gated_one_to_all_kernel_equals_plain_version(cuda, name):
     rng = np.random.default_rng(1)
     wq = rng.integers(-127, 128, (kh, kh, cin, kout)).astype(np.int8)
     wq[rng.random(wq.shape) >= density] = 0
-    for t in dead:
-        wq[t // kh, t % kh] = 0
+    for d in dead:
+        t, k0, k1 = (d, 0, kout) if isinstance(d, int) else d
+        wq[t // kh, t % kh, :, k0:k1] = 0
     pw = ops.pack_conv_weights(wq, kblk=kblk)
     dev = ops.packed_tensors(pw, cuda)
     x = rng.integers(0, 256 if u8 else 2, (m, h, w, pw.cin)).astype(np.uint8)
