@@ -10,7 +10,10 @@ Phases (any failure exits non-zero, and the last line is never printed):
    ``snn-det`` config (576×1024, block 18×32, channels 3→16 … 256, (1, 3)
    mixed time), hard reset from a cold membrane and soft reset from a warm
    one, in both weight modes (predecoded, and packed with the decode in
-   the kernel): spikes and membranes must be bit-equal.
+   the kernel): spikes and membranes must be bit-equal. Then a 7×7 layer
+   at C = 256 (T=3, soft reset, warm) whose weight slice exceeds shared
+   memory, so both modes stream it in K-chunks (packed: decoded chunk by
+   chunk in the kernel): bit-equal, with times.
 3. The serving slice at full width: seeded ``demo_weights`` (pruned 0.8,
    tdBN-calibrated, TF32 off), ``compile_detector`` with the kernel
    executor, a ``DetectorSession`` over batch 2 × 3 frames. 27 kernel
@@ -59,6 +62,20 @@ g. ``repro_torch.benchmarks.kernel_bench.run()`` on the card (every kernel
    ``e2e_detector.run`` at full width (``CONFIG``, 576×1024, batch 1): every
    executor bit-equal to dense, 27 fused launches per frame, wall ms each.
 
+The megabatched engine (``repro_torch.serve``), at ``CONFIG`` with the
+kernel executor and the seeded weights of 3:
+
+h. Join and leave: 10 ``FrameRequest`` streams of staggered lengths through
+   ``Engine(det, n_slots=4)``: drained, 27 fused launches per tick, every
+   served head bit-equal to a solo ``DetectorSession`` replay, ``valid``
+   and ``classes`` equal. ``masked_step``: garbage in dead lanes leaves the
+   active rows' heads and membranes bit-equal and the dead lanes' membranes
+   frozen; a cold row equals an explicitly zeroed one, and a cold inactive
+   row comes out zeroed. Buckets 2→4→8→2 with the resident rows equal to
+   solo replays. ``serve_bench.run_load`` at 8 and 64 streams × 4 frames
+   (frames/s, tick percentiles, host and device ms, peak memory; 3 streams
+   against solo replays). The serve CLI once at full width.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error and times.
 """
@@ -88,6 +105,8 @@ LIF_SHAPES = ((3, 73728, 32), (16, 294912, 32), (16, 1179648, 16))
 FFN_TOKENS, FFN_D, FFN_FF, FFN_DENSITY = 2048, 1024, 2816, 0.2
 FFN_DECODE_TOKENS = 16  # a decode step: the format's use, bound by the weights' bytes
 E2E_REPS = 100  # timed detect() calls per executor at 576x1024 (~10 s in all)
+ENGINE_LENGTHS = (1, 4, 2, 5, 3, 1, 2, 6, 1, 3)  # frames per stream, the join/leave run
+LOAD_STREAMS, LOAD_FRAMES = (8, 64), 4
 
 
 def card() -> dict:
@@ -529,6 +548,192 @@ def phase_matmul(dev, tag) -> dict:
             "max_abs_err_f64": max(r["max_abs_err_f64"] for r in rows)}
 
 
+def phase_streamed_packed(dev, tag) -> dict:
+    """(2, last row) a 7×7 layer at C = 256 whose 64-channel weight slice
+    (784 KB) exceeds shared memory: both weight modes stream it in K-chunks,
+    the packed mode decoding each chunk in the kernel."""
+    from repro_torch.kernels import fused_pipeline as fp
+    from repro_torch.kernels import ops
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    kh, cin, kout, t, hw = 7, 256, 64, 3, (18, 32)
+    wq = torch.randint(-127, 128, (kh, kh, cin, kout), generator=gen, device=dev)
+    wq[torch.rand(wq.shape, generator=gen, device=dev) > 0.2] = 0
+    pw = ops.pack_conv_weights(wq.to(torch.int8).cpu().numpy())
+    live = ops.predecode(pw, dev)
+    maskp, vals = torch.from_numpy(pw.maskp).to(dev), torch.from_numpy(pw.vals).to(dev)
+    x = torch.randint(0, 2, (t, BATCH, *hw, cin), generator=gen, device=dev).to(torch.uint8)
+    rows = torch.stack([torch.full((kout,), 1.0 / (kh * kh * cin), device=dev),
+                        torch.randn(kout, generator=gen, device=dev),
+                        torch.rand(kout, generator=gen, device=dev) + 0.5,
+                        torch.randn(kout, generator=gen, device=dev),
+                        torch.randn(kout, generator=gen, device=dev)])
+    affine = ops.pad_affine(rows, pw.kp)
+    v0 = torch.randn((BATCH, *hw, kout), generator=gen, device=dev)
+    a = dict(kout=kout, kh=kh, kw=kh, bh=hw[0], bw=hw[1], t_out=t, bn_scale=0.5,
+             threshold=0.5, leak=0.25, reset="soft", v_init=0.25)
+
+    def packed():
+        return fp.fused_pipeline_packed(x, maskp, vals, live.taps, affine, v0, **a)
+
+    def predecoded():
+        return fp.fused_pipeline(x, live.w, live.taps, affine, v0, **a)
+
+    def plain():
+        return fp.fused_pipeline_reference(x, fp.decode_packed(maskp, vals, live.taps),
+                                           live.taps, affine, v0, **a)
+
+    rspk, rmem = plain()
+    err = 0.0
+    for mode, fn in (("packed", packed), ("predecoded", predecoded)):
+        spk, mem = fn()
+        torch.cuda.synchronize()
+        err = max(err, float((mem - rmem).abs().max()))
+        if not (bits_equal(spk, rspk) and bits_equal(mem, rmem)):
+            raise AssertionError(f"{mode} kernel != plain version at the streamed 7x7 layer: "
+                                 f"max |Δmem| {err}")
+    ms, host_ms = device_ms(packed)
+    plan = fp.last_plan()
+    if not plan["tile_channels"] * kh * kh * cin > plan["smem_bytes"]:
+        raise AssertionError(f"the 7x7 layer's weights fit after all: {plan}")
+    pre_ms, _ = device_ms(predecoded)
+    plain_ms = elapsed_ms(plain)
+    npix = BATCH * hw[0] * hw[1]
+    nbytes = (x.numel() + maskp.numel() + vals.numel() + affine.numel() * 4 + v0.numel() * 4
+              + t * npix * kout + npix * kout * 4)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * t * npix * int(torch.count_nonzero(wq)) / INT8_OPS_PER_S
+    row = {"layer": "7x7 C=256 (streamed weights)", "x": list(x.shape), "kout": kout,
+           "bit_equal": True, "max_abs_err": err, "ms": ms, "host_ms": host_ms,
+           "predecoded_ms": pre_ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops) * 1e3,
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations", "plan": plan}
+    print(json.dumps({"phase": "streamed_packed", **row, **tag}), flush=True)
+    return row
+
+
+def phase_engine(dev, det, tag) -> dict:
+    """(h) the megabatched engine at full width on ``det`` (``CONFIG``, the
+    kernel executor); the join/leave run driven with the launch counts set
+    to 0 just before it and read just after."""
+    from repro_torch import backend
+    from repro_torch.benchmarks import serve_bench
+    from repro_torch.kernels import fused_pipeline as fp
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve import DetectorEngineCore, Engine, FrameRequest
+    from repro_torch.serve.detector import synth_streams
+
+    rng = np.random.default_rng(SEED + 16)
+    hw = det.cfg.input_hw
+
+    def equal_solo(reqs, what):
+        for fr in reqs:
+            solo = det.new_session(batch=1)
+            for k, f in enumerate(fr.frames):
+                step = solo.step(f[None])
+                if not np.array_equal(fr.heads[k], step.head[0].cpu().numpy()):
+                    raise AssertionError(f"{what}: stream {fr.rid} frame {k}: served head != "
+                                         "solo DetectorSession replay")
+                for name in ("valid", "classes"):
+                    if not np.array_equal(getattr(fr.out[k], name),
+                                          getattr(step.detections, name)[0].cpu().numpy()):
+                        raise AssertionError(f"{what}: stream {fr.rid} frame {k}: {name} "
+                                             "!= solo replay")
+
+    # join and leave, 4 slots
+    reqs = [FrameRequest(rid=r, frames=synth_streams(rng, 1, n, hw)[0])
+            for r, n in enumerate(ENGINE_LENGTHS)]
+    eng = Engine(det, n_slots=4)
+    for fr in reqs:
+        if not eng.submit(fr):
+            raise AssertionError(f"stream {fr.rid} refused")
+    torch.cuda.synchronize()
+    backend.reset_launches()
+    out = eng.run()
+    torch.cuda.synchronize()
+    launches = dict(backend.launches)
+    ticks = len(eng.core.step_wall)
+    if out.status != "drained" or len(out) != len(reqs):
+        raise AssertionError(f"engine served {len(out)} of {len(reqs)}: {out.status}")
+    if launches != {fp.KERNEL: 27 * ticks}:
+        raise AssertionError(f"{launches} launches over {ticks} ticks; want 27 fused per tick")
+    equal_solo(reqs, "join/leave")
+    join = {"ticks": ticks, "launches": launches, "launches_per_tick": 27,
+            "tick_host_ms": [w * 1e3 for w in eng.core.step_wall],
+            "tick_device_ms": eng.core.step_device_ms}
+    print(json.dumps({"phase": "engine_join_leave", **join, **tag}), flush=True)
+
+    # masked_step: dead lanes, cold rows
+    x = torch.from_numpy(np.concatenate(synth_streams(rng, 4, 1, hw))).to(dev)
+    on = torch.ones(4, dtype=torch.bool, device=dev)
+    _, mem, _ = det.masked_step(x, det.zero_state(4), on)  # a warm membrane in every row
+    active = torch.tensor([True, True, False, False], device=dev)
+    h1, m1, _ = det.masked_step(x, mem, active)
+    garbage = x.clone()
+    garbage[2:] = torch.rand(garbage[2:].shape, device=dev)
+    dirty = {k: v.clone() for k, v in mem.items()}
+    for v in dirty.values():
+        v[2:] = torch.randn(v[2:].shape, device=dev) * 4
+    h2, m2, _ = det.masked_step(garbage, dirty, active)
+    if not bits_equal(h1[:2], h2[:2]):
+        raise AssertionError("active rows' heads depend on the dead lanes")
+    for k in m1:
+        if not (bits_equal(m1[k][:2], m2[k][:2]) and bits_equal(m2[k][2:], dirty[k][2:])
+                and bits_equal(m1[k][2:], mem[k][2:])):
+            raise AssertionError(f"dead lanes leak into {k}, or their membrane moved")
+    cold = torch.tensor([False, True, True, False], device=dev)
+    active = torch.tensor([True, True, False, True], device=dev)
+    hc, mc, _ = det.masked_step(x, mem, active, cold)
+    zeroed = {k: v.clone() for k, v in mem.items()}
+    for v in zeroed.values():
+        v[1:3] = 0.0
+    hz, mz, _ = det.masked_step(x, zeroed, active, torch.zeros(4, dtype=torch.bool, device=dev))
+    if not (bits_equal(hc, hz) and all(bits_equal(mc[k], mz[k]) for k in mc)):
+        raise AssertionError("a cold row differs from an explicitly zeroed one")
+    if any(bool(mc[k][2].any()) for k in mc):
+        raise AssertionError("a cold inactive row did not come out zeroed")
+    del mem, m1, m2, dirty, mc, mz, zeroed
+
+    # capacity buckets 2 -> 4 -> 8 -> 2
+    core = DetectorEngineCore(det, n_slots=16, min_bucket=2)
+    breqs = [FrameRequest(rid=r, frames=s) for r, s in enumerate(synth_streams(rng, 5, 4, hw))]
+    caps = [core.cap]
+    core.admit(breqs[0], 0)
+    core.admit(breqs[1], 1)
+    bactive = {0: breqs[0], 1: breqs[1]}
+    core.step(bactive)
+    for slot in (2, 3, 4):
+        core.admit(breqs[slot], slot)
+        bactive[slot] = breqs[slot]
+        caps.append(core.cap)
+    while bactive:
+        for slot in core.step(bactive):
+            del bactive[slot]
+    caps.append(core.cap)
+    if caps != [2, 4, 4, 8, 2]:
+        raise AssertionError(f"capacity went {caps}; want 2 -> 4 -> 8 -> 2")
+    equal_solo(breqs, "buckets")
+    print(json.dumps({"phase": "engine_checks", "masked_step": "dead lanes frozen, cold == "
+                      "zeroed", "bucket_caps": caps, **tag}), flush=True)
+    del core
+
+    # load: N resident streams, one tick per frame
+    load = {}
+    for n in LOAD_STREAMS:
+        torch.cuda.empty_cache()
+        load[n] = serve_bench.run_load(det, n_streams=n, frames=LOAD_FRAMES, parity_streams=3)
+        print(json.dumps({"phase": "engine_load", **load[n], **tag}), flush=True)
+
+    # the serve CLI, full width
+    t0 = time.perf_counter()
+    done = launch.main(["--arch", "snn-det", "--full-config", "--conv-exec", "pallas",
+                        "--requests", "8", "--slots", "4", "--frames", "3"])
+    if len(done) != 8 or any(len(r.heads) != 3 for r in done):
+        raise AssertionError(f"the serve CLI served {len(done)} of 8 streams")
+    print(json.dumps({"phase": "serve_cli", "seconds": time.perf_counter() - t0, **tag}),
+          flush=True)
+    return {"join": join, "load": load}
+
+
 def phase_benchmarks(dev, tag) -> dict:
     """(g) the port's kernel_bench and, at full width, e2e_detector; each
     driven with the launch counts set to 0 just before it and read after."""
@@ -651,6 +856,7 @@ def main() -> int:
     print(json.dumps({"phase": "kernel_vs_plain", "checks": n_checked,
                       "max_abs_err": max_err, "packed_ms_per_frame": packed_total, **tag}),
           flush=True)
+    streamed = phase_streamed_packed(dev, tag)
 
     # ------------------- a, b. the gated kernel; the fused kernel at T=16
     gated = phase_gated(dev, cfg, tag)
@@ -796,6 +1002,14 @@ def main() -> int:
     benches = phase_benchmarks(dev, tag)
     print(json.dumps({"phase": "elapsed", "after": "g", "s": time.perf_counter() - t_start}),
           flush=True)
+
+    # ------------------------------------------------------------ h. the engine
+    conv.pop("det")  # the converted detector's weights and frames: not needed any more
+    conv.pop("frames")
+    torch.cuda.empty_cache()
+    engine = phase_engine(dev, det, tag)
+    print(json.dumps({"phase": "elapsed", "after": "h", "s": time.perf_counter() - t_start}),
+          flush=True)
     bl, el = benches["bench_launches"], benches["e2e_launches"]
     lif0, mm0 = lif["rows"][0], mm["rows"][0]  # kernel_bench's own shapes
 
@@ -816,6 +1030,11 @@ def main() -> int:
         # the packed (in-kernel decode) mode is off the serving path: timed
         # at the same shapes on random pruned weights, never launched there
         "packed_mode_ms": packed_total,
+        "packed_streamed_7x7": {k: streamed[k] for k in ("ms", "predecoded_ms", "plain_ms",
+                                                         "bound_ms", "bound_by", "plan")},
+        "launches_engine": engine["join"]["launches"][fp.KERNEL],
+        "launches_engine_per_tick": engine["join"]["launches_per_tick"],
+        "engine_ticks": engine["join"]["ticks"],
         "t16_ms": fused16["ms_per_frame"],
         "t16_plain_ms": fused16["plain_ms_per_frame"],
         "t16_bound_ms": fused16["bound_ms_per_frame"],

@@ -134,11 +134,11 @@ def fused_source() -> str:
         ("  const int tid = threadIdx.x;\n  const int n0 = blockIdx.y * BN;\n",
          "  const long long c_start = clock64();\n"
          "  const int tid = threadIdx.x;\n  const int n0 = blockIdx.y * BN;\n"),
-        ("      load_weights<BN>(p, wsm, n0);\n  }\n  __syncthreads();\n",
-         "      load_weights<BN>(p, wsm, n0);\n  }\n  __syncthreads();\n"
+        ("smem + p.off_partial));\n  }\n  __syncthreads();\n",
+         "smem + p.off_partial));\n  }\n  __syncthreads();\n"
          "  const long long c_setup = clock64() - c_start;\n"),
-        ("  conv_tiles<T>(p, gm, smem, n0, epilogue);\n}",
-         "  conv_tiles<T>(p, gm, smem, n0, epilogue);\n" + _record("c_setup")),
+        ("  conv_tiles<T, kStream>(p, gm, smem, n0, epilogue);\n}",
+         "  conv_tiles<T, kStream>(p, gm, smem, n0, epilogue);\n" + _record("c_setup")),
     ], decl="namespace {\n", tail=TAIL_CONV)
 
 

@@ -31,8 +31,13 @@
 //    decodes (packed) its output-channel tile of the weights over the
 //    whole K-dim into shared memory once, [channel][K-dim] bytes, and
 //    reuses it across every time step and every pixel tile of a
-//    persistent block. A slice that does not fit is streamed in K-chunks
-//    beside the inputs (predecoded mode only);
+//    persistent block. A slice that does not fit (a 7x7 layer at C = 256:
+//    784 KB) is streamed in K-chunks beside the inputs through a ring of
+//    B buffers: copied (predecoded), or decoded there chunk by chunk by
+//    the block's threads as they issue the chunk (packed), from byte-row
+//    ranks of the tile's K-blocks computed once per block. The gated
+//    kernel's K-dim segments would not do here: they add partial sums
+//    into an int32 output, and the LIF step needs the whole sum;
 //  * the A operand, two ways, in a ring of three shared-memory buffers so
 //    that two items are in flight while the tensor cores run one:
 //    - im2col: a block-clamped im2col chunk per item, built by cp.async
@@ -142,7 +147,9 @@ __device__ void load_weights(const Params& p, uint8_t* wsm, int n0) {
 // The 16-channel one-step tile asks for 3 blocks per SM (at most 85
 // registers a thread): its maps are the largest, and the extra block
 // hides the gathers' and the stores' latency.
-template <int TB, int NI, int WM, int WN>
+// kStream: packed weights that do not fit, decoded K-chunk by K-chunk into
+// the streamed B ring (one tile instantiates it, see launch_tile).
+template <int TB, int NI, int WM, int WN, bool kStream>
 __global__ void __launch_bounds__(kThreads, (TB == 1 && WN * 8 * NI == 16) ? 3 : 1)
     fused_pipeline_kernel(const Params p) {
   using T = Tile<TB, NI, WM, WN>;
@@ -179,6 +186,15 @@ __global__ void __launch_bounds__(kThreads, (TB == 1 && WN * 8 * NI == 16) ? 3 :
                          reinterpret_cast<int*>(smem + p.off_partial));
     else
       load_weights<BN>(p, wsm, n0);
+  } else if (kStream) {
+    // streamed packed weights: the byte-row ranks of each K-block the
+    // channel tile touches, for the producer's chunk decode (decode_chunk)
+    const int per_kb = p.taps_total * (p.c / 8), n_end = min(n0 + BN, p.kp);
+    int* rank8 = reinterpret_cast<int*>(smem + p.off_rows);
+    for (int kb = n0 / p.kblk; kb * p.kblk < n_end; ++kb)
+      kblock_byte_row_ranks<kThreads>(p.maskp + (long long)kb * per_kb * p.kblk, per_kb, p.kblk,
+                                      rank8 + (kb - n0 / p.kblk) * per_kb,
+                                      reinterpret_cast<int*>(smem + p.off_partial));
   }
   __syncthreads();
 
@@ -319,7 +335,7 @@ __global__ void __launch_bounds__(kThreads, (TB == 1 && WN * 8 * NI == 16) ? 3 :
       tile_f32_out(p.mem, rp);
     }
   };
-  conv_tiles<T>(p, gm, smem, n0, epilogue);
+  conv_tiles<T, kStream>(p, gm, smem, n0, epilogue);
 }
 
 bool fill_params(Params& p, const void* x, const void* affine, const void* v0, void* spk,
@@ -365,11 +381,18 @@ bool fill_params(Params& p, const void* x, const void* affine, const void* v0, v
 // The plan of the last launch, for diagnostics (launch_persistent).
 int g_last_plan[kPlanInts];
 
-template <int TB, int NI, int WM, int WN>
+// Packed weights that do not fit in shared memory go to one tile built to
+// decode the streamed chunks (kStream): 32 pixels x 64 channels, 4 steps a
+// pass, so a chunk is decoded once per 4 steps of a tile.
+template <int TB, int NI, int WM, int WN, bool kStream = false>
 int launch_tile(Params& p, bool packed, cudaStream_t s) {
   using T = Tile<TB, NI, WM, WN>;
   const int smem = plan_smem(p, TB, T::BP, T::BN, packed, 5 * T::BN * 4, false);
-  return launch_persistent<T>(fused_pipeline_kernel<TB, NI, WM, WN>, p, smem, s, g_last_plan);
+  if constexpr (!kStream) {
+    if (packed && smem >= 0 && !p.resident) return launch_tile<4, 2, 2, 4, true>(p, packed, s);
+  }
+  return launch_persistent<T>(fused_pipeline_kernel<TB, NI, WM, WN, kStream>, p, smem, s,
+                              g_last_plan);
 }
 
 // Tiles by shape, from the chip runs that PERF.md records. Large maps, or

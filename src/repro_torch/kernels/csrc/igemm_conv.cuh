@@ -12,8 +12,10 @@
 //    decodes (packed: the rank walk of common.cuh) its output-channel tile
 //    of the weights into shared memory once, [channel][K-dim] bytes, and
 //    reuses it over every step and pixel tile it walks. A tile whose
-//    weights do not fit is streamed in K-chunks beside the inputs
-//    (predecoded), or decoded one K-dim segment at a time (packed: the
+//    weights do not fit is streamed in K-chunks beside the inputs, through
+//    a ring of B buffers: copied (predecoded), or decoded there by the
+//    producer (packed, decode_chunk); or, where the caller asks for it
+//    (plan_smem's ``segments``), decoded one K-dim segment at a time (the
 //    caller walks the segments and its epilogue adds their sums);
 //  * the A operand, in a ring of kStages shared-memory buffers (two items
 //    in flight while the tensor cores run one), two ways:
@@ -221,8 +223,9 @@ __device__ __forceinline__ void fill_tables(const Conv& p, const Geo& gm, bool h
 // One live (tap, channel) row's weights in the span [ks, ke) of K-block
 // ``kb``, W mask bytes a load: idx enters as the row's first value index in
 // the K-block, the bits left of the span are counted, then each set bit
-// takes the next value (clipped to VPAD - 1, like the TPU gather).
-template <int W>
+// takes the next value (clipped to VPAD - 1, like the TPU gather). kAll:
+// a clear bit writes its zero too (else the caller zeroed the buffer).
+template <int W, bool kAll = false>
 __device__ __forceinline__ void decode_row(const Conv& p, const uint8_t* row, int sh, int idx,
                                            int ks, int ke, const int8_t* vk, uint8_t* dst,
                                            int n_off) {
@@ -248,6 +251,8 @@ __device__ __forceinline__ void decode_row(const Conv& p, const uint8_t* row, in
       if ((words[j / 4] >> (8 * (j & 3) + sh)) & 1u) {
         dst[(n_off + q + j) * p.w_stride] = (uint8_t)__ldg(vk + min(idx, p.vpad - 1));
         ++idx;
+      } else if (kAll) {
+        dst[(n_off + q + j) * p.w_stride] = 0;
       }
     }
   }
@@ -291,6 +296,50 @@ __device__ void decode_weights(const Conv& p, const Geo& gm, uint8_t* wsm, int n
   __syncthreads();
 }
 
+// Decode K-dim chunk [k0, k0 + klen) of the block's channel tile [n0, n0 +
+// BN) of the packed weights into a streamed B buffer: byte (n, k - k0) of
+// rows of w_stride bytes, every byte written (the weight, or zero). One
+// thread per K-dim row. A chunk starts and ends anywhere in a K-block's
+// rows, so each row's first value index comes from ``rank8``, the byte-row
+// ranks of every K-block the tile touches (kblock_byte_row_ranks, K-block
+// n0/KBLK first), plus the set bits of the row's byte row in the bits
+// below its own, over the whole K-block (those rows precede it in the
+// values' (tap, c, k) order). Plain stores: the barrier before the buffer
+// is read makes them visible. Only the loop instantiated for it
+// (conv_tiles' kDecodeChunks) contains it.
+template <int BN>
+__device__ __forceinline__ void decode_chunk(const Conv& p, const Geo& gm, uint8_t* B, int n0,
+                                             int k0, int klen, const int* tdh, const int* tdw,
+                                             const int* rank8) {
+  const int c8 = p.c / 8, per_kb = p.taps_total * c8;
+  const int n_end = min(n0 + BN, p.kp), kb0 = n0 / p.kblk;
+  for (int r = k0 + threadIdx.x; r < k0 + klen; r += kThreads) {
+    uint8_t* dst = B + (r - k0);
+    const int n_dec = r < gm.kreal ? n_end - n0 : 0;  // channels decoded; the rest zero
+    for (int n = n_dec; n < BN; ++n) dst[n * p.w_stride] = 0;
+    if (n_dec == 0) continue;
+    const int l = r / p.c, ch = r - l * p.c, sh = ch & 7;
+    const int tap = (tdh[l] + p.pad) * p.kw + tdw[l] + p.pad;
+    const int u = tap * c8 + ch / 8;  // the row's byte row
+    const uint32_t below = 0x01010101u * ((1u << sh) - 1u);  // bits c%8' < c%8 of each byte
+    for (int kb = kb0; kb * p.kblk < n_end; ++kb) {
+      const uint8_t* row = p.maskp + ((long long)kb * per_kb + u) * p.kblk;
+      int idx = rank8[(kb - kb0) * per_kb + u];
+      if (below != 0u)
+        for (int q = 0; q < p.kblk; q += 4)
+          idx += __popc(__ldg(reinterpret_cast<const uint32_t*>(row + q)) & below);
+      const int ks = max(n0, kb * p.kblk) - kb * p.kblk;  // the tile's span in this K-block
+      const int ke = min(n_end, (kb + 1) * p.kblk) - kb * p.kblk;
+      const int8_t* vk = p.vals + (long long)kb * p.vpad;
+      const int n_off = kb * p.kblk - n0;
+      if (p.kblk % 8 == 0)
+        decode_row<8, true>(p, row, sh, idx, ks, ke, vk, dst, n_off);
+      else
+        decode_row<4, true>(p, row, sh, idx, ks, ke, vk, dst, n_off);
+    }
+  }
+}
+
 // The block's main loop over its items: chunk ch (of the K-dim, or of the
 // channels in halo mode) of pass ps (steps ps*TB ...) of the block's pixel
 // tile tl (its blockIdx.x + tl * gridDim.x-th), in (tl, ps, ch) order, the
@@ -300,8 +349,9 @@ __device__ void decode_weights(const Conv& p, const Geo& gm, uint8_t* wsm, int n
 // (-1: none). The caller has filled the tap tables and the weights and
 // synchronised. P is the kernel's Params: its kHalo policy (kHaloAny:
 // halo mode at one step per pass and C == 16 too) is the one plan_smem
-// planned with.
-template <class T, class P, class Epi>
+// planned with. kDecodeChunks: the weights are packed and streamed (the
+// plan's resident == 0), and the byte-row ranks are at off_rows.
+template <class T, bool kDecodeChunks = false, class P, class Epi>
 __device__ __forceinline__ void conv_tiles(const P& p, const Geo& gm, uint8_t* smem, int n0,
                                            Epi&& epi) {
   constexpr bool kHalo1 = P::kHalo == kHaloAny;
@@ -414,7 +464,11 @@ __device__ __forceinline__ void conv_tiles(const P& p, const Geo& gm, uint8_t* s
         gather_row<8>(p, arow, ku, upr, j0, kTpr, info, t, tdh, tdw);
       else
         gather_row<4>(p, arow, ku, upr, j0, kTpr, info, t, tdh, tdw);
-      if (!p.resident) {  // the chunk's weights, channel rows of klen bytes
+      if (kDecodeChunks && !p.resident) {  // packed: decode the chunk's weights into B
+        if constexpr (kDecodeChunks)
+          decode_chunk<BN>(p, gm, wsm + buf * BN * p.w_stride, n0, k0, klen, tdh, tdw,
+                           reinterpret_cast<const int*>(smem + p.off_rows));
+      } else if (!p.resident) {  // the chunk's weights, channel rows of klen bytes
         uint8_t* B = wsm + buf * BN * p.w_stride;
         const int c4 = p.c / 4;
         const int wpr = klen / 4;
@@ -564,8 +618,11 @@ __host__ __device__ inline int round_up(int a, int b) { return (a + b - 1) / b *
 // 1x1's im2col rows are contiguous already) and the weights are resident:
 // the pixel tile is a th x tw rectangle inside one block-conv block (the
 // shape that wastes the fewest rows at the block's edges), and a channel
-// chunk of cc channels (the widest that fits) of its halo is one item. Packed weights that do not fit whole are
-// refused, or (segments) decoded kseg K-dim bytes at a time.
+// chunk of cc channels (the widest that fits) of its halo is one item.
+// Packed weights that do not fit whole are streamed, decoded a K-chunk at
+// a time into the B ring (the block keeps byte-row ranks of the K-blocks
+// its tile touches at off_rows), or (segments) decoded kseg K-dim bytes at
+// a time.
 template <class P>
 inline int plan_smem(P& p, int tb, int bp, int bn, bool packed, int extra, bool segments) {
   const int rows = tb * bp;
@@ -578,8 +635,9 @@ inline int plan_smem(P& p, int tb, int bp, int bn, bool packed, int extra, bool 
   const int units = round_up(p.kpad / p.g * 4, 16);
   const int rowinfo = bp * 16;
   const int rowpix = kStages * bp * 4;
-  const int rows_b = packed ? round_up(p.taps_total * p.c * 4, 16) + kThreads * 4 : 0;
-  const int fixed = stage + extra + taps + units + rowinfo + rowpix + rows_b;
+  int ranks = packed ? round_up(p.taps_total * p.c * 4, 16) : 0;  // kblock_row_ranks' table
+  const int partial = packed ? kThreads * 4 : 0;
+  int fixed = stage + extra + taps + units + rowinfo + rowpix + ranks + partial;
   const int wres = bn * (p.kpad + 16);
   const bool pair = P::kHalo == kHaloAny && p.c == 16;
   p.halo = 0;
@@ -622,8 +680,7 @@ inline int plan_smem(P& p, int tb, int bp, int bn, bool packed, int extra, bool 
   } else {
     // resident weights if they fit beside the smallest A ring
     p.resident = wres + kStages * rows * (32 + 16) + fixed <= kSmemMax;
-    if (!p.resident && packed) {
-      if (!segments) return -1;
+    if (!p.resident && packed && segments) {
       // segments: a 128-byte (or narrower) A chunk, the weights' K-dim
       // segment as wide as the bytes left allow
       p.kc = std::max(32, std::min(128, kAChunkBytes / rows) / 32 * 32);
@@ -633,6 +690,14 @@ inline int plan_smem(P& p, int tb, int bp, int bn, bool packed, int extra, bool 
       p.resident = 1;
       p.nch = (p.kseg + p.kc - 1) / p.kc;
     } else {
+      if (!p.resident && packed) {  // streamed decode: byte-row ranks per touched K-block
+        int kbs = 1;
+        for (int c0 = 0; c0 < p.kp; c0 += bn)
+          kbs = std::max(kbs, (std::min(c0 + bn, p.kp) - 1) / p.kblk - c0 / p.kblk + 1);
+        const int ranks8 = round_up(kbs * p.taps_total * (p.c / 8) * 4, 16);
+        fixed += ranks8 - ranks;
+        ranks = ranks8;
+      }
       // the A chunk: as wide as the bytes left allow, up to kAChunkBytes a stage
       const int per_col = p.resident ? kStages * rows : kStages * (rows + bn);
       const int left = kSmemMax - fixed - (p.resident ? wres : 0);
@@ -657,8 +722,8 @@ inline int plan_smem(P& p, int tb, int bp, int bn, bool packed, int extra, bool 
   p.off_rowinfo = p.off_units + units;
   p.off_rowpix = p.off_rowinfo + rowinfo;
   p.off_rows = p.off_rowpix + rowpix;
-  p.off_partial = p.off_rows + (packed ? round_up(p.taps_total * p.c * 4, 16) : 0);
-  return p.off_rows + rows_b;
+  p.off_partial = p.off_rows + ranks;
+  return p.off_partial + partial;
 }
 
 // Launch ``kernel`` on tile T with the plan of plan_smem (``smem`` bytes):

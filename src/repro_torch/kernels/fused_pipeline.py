@@ -19,9 +19,10 @@ integer-valued f32, also exact. Both then compute the same float chain,
 the plain version one eager op at a time (each product rounded on its
 own), the kernel with the same roundings pinned by ``__fmul_rn``/
 ``__fadd_rn`` and built ``-fmad=false``, so the two agree bit for bit on
-the card. The packed mode needs the block's decoded weight slice to fit in
-shared memory (every layer of the detector does); the predecoded mode
-streams a slice that does not.
+the card. A block's weight slice that does not fit in shared memory (a
+7×7 layer at C = 256) is streamed in K-chunks in both modes: copied
+(predecoded), or decoded chunk by chunk in the kernel (packed). Every
+layer of the detector fits.
 """
 from __future__ import annotations
 

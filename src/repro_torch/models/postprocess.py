@@ -12,6 +12,11 @@ import torch
 
 from repro_torch.models.snn_yolo import DEFAULT_ANCHORS, decode_head
 
+# the most (image, box, box) pairs whose IoU one pass of nms computes: its
+# f32 temporaries stay near 256 MB each whatever the batch (a 64-image
+# megabatch at 576x1024 has 64 x 2880^2 pairs)
+NMS_PAIRS_PER_PASS = 1 << 26
+
 
 class Detections(NamedTuple):
     """Fixed-size per-image detection set; ``valid`` marks live rows
@@ -55,7 +60,9 @@ def nms(
     classes (B, M) or None. With classes, a pick suppresses only boxes of
     its own class. Scores ≤ 0 are dead on arrival. Each of the
     ``min(max_out, M)`` rounds picks the live box of highest score (ties:
-    the first index, as ``jnp.argmax``).
+    the first index, as ``jnp.argmax``). The suppression table is built in
+    passes of whole images, at most ``NMS_PAIRS_PER_PASS`` box pairs a
+    pass: each image's table is its own, so the passes change no bit.
 
     Returns (indices (B, max_out) int32, valid (B, max_out) bool)."""
     b, m = scores.shape
@@ -63,12 +70,18 @@ def nms(
     ok = torch.zeros((b, max_out), dtype=torch.bool, device=scores.device)
     if m == 0:
         return idx, ok
-    neg_inf = torch.tensor(float("-inf"), dtype=scores.dtype, device=scores.device)
+    neg_inf = float("-inf")  # a Python scalar: no copy to the device, no host wait
     live = torch.where(scores > 0.0, scores, neg_inf)
     # suppress[b, i, j]: picking box i kills box j (the pick itself too)
-    suppress = iou_xywh(boxes[:, None, :, :], boxes[:, :, None, :]) >= iou_threshold
-    if classes is not None:
-        suppress &= classes[:, :, None] == classes[:, None, :]
+    suppress = torch.empty((b, m, m), dtype=torch.bool, device=scores.device)
+    per_pass = max(1, NMS_PAIRS_PER_PASS // (m * m))
+    for i0 in range(0, b, per_pass):
+        bx = boxes[i0:i0 + per_pass]
+        sup = iou_xywh(bx[:, None, :, :], bx[:, :, None, :]) >= iou_threshold
+        if classes is not None:
+            cl = classes[i0:i0 + per_pass]
+            sup &= cl[:, :, None] == cl[:, None, :]
+        suppress[i0:i0 + per_pass] = sup
     rows = torch.arange(b, device=scores.device)
     for k in range(min(max_out, m)):
         i = torch.argmax(live, dim=1)

@@ -205,12 +205,16 @@ def test_e2e_detector_main_writes_only_where_asked(tmp_path, monkeypatch):
     assert all(r["launches_per_frame"] == {} for r in res["executors"].values())
 
 
-@pytest.mark.parametrize("module", ["kernel_bench", "e2e_detector", "kernel_phases"])
+@pytest.mark.parametrize("module", ["kernel_bench", "e2e_detector", "kernel_phases",
+                                    "serve_bench", "launch.serve"])
 def test_benchmarks_default_to_the_card(module, tmp_path):
-    """Without --device a benchmark runs on the card, and with no card it
-    raises instead of falling back to the CPU."""
+    """Without --device a benchmark (or the serve CLI) runs on the card, and
+    with no card it raises instead of falling back to the CPU."""
     env = {**os.environ, "PYTHONPATH": os.path.join(ROOT, "src"), "CUDA_VISIBLE_DEVICES": ""}
-    r = subprocess.run([sys.executable, "-m", f"repro_torch.benchmarks.{module}"], env=env,
+    argv = ["-m", f"repro_torch.benchmarks.{module}"]
+    if module == "launch.serve":
+        argv = ["-m", "repro_torch.launch.serve", "--arch", "snn-det"]
+    r = subprocess.run([sys.executable, *argv], env=env,
                        cwd=tmp_path, capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and "no CUDA device" in r.stderr, r.stdout + r.stderr
     assert os.listdir(tmp_path) == []

@@ -1,13 +1,17 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card:
 bit for bit, the fused pipeline in both weight modes (T up to 16, each of
-its tensor-core tilings, weights resident or streamed), the gated
-one-to-all conv and the fused LIF; the bitmask matmul within
-1e-5·(|x|@|W|) + 1e-6 of its plain version and of a float64 product (f32
-sums in another order), its split-K path the same from run to run. Needs a CUDA device and nothing of JAX; skips
-without a card:
+its tensor-core tilings, weights resident or streamed — the packed mode
+decoding streamed K-chunks), the gated one-to-all conv and the fused LIF;
+the bitmask matmul within 1e-5·(|x|@|W|) + 1e-6 of its plain version and
+of a float64 product (f32 sums in another order), its split-K path the
+same from run to run; and the megabatched Engine on the card against solo
+session replays. Needs a CUDA device and nothing of JAX; skips without a
+card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -18,6 +22,10 @@ from repro_torch.kernels import fused_pipeline as fp  # noqa: E402
 from repro_torch.kernels import gated_one_to_all as g2a  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import spike_lif as sl  # noqa: E402
+from repro_torch.configs.snn_det import smoke_config  # noqa: E402
+from repro_torch.models import snn_yolo as sy  # noqa: E402
+from repro_torch.serve import Engine, FrameRequest  # noqa: E402
+from repro_torch.serve.detector import demo_weights  # noqa: E402
 
 THR, LEAK = 0.5, 0.25
 
@@ -58,7 +66,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _fused_operands(case, dev, density=0.3):
+def _fused_operands(case, dev, density=0.3, kblk=128):
     """(args, kw, pw) for one fused case: seeded weights, inputs, affine."""
     kh, cin, kout, t_in, t_out, u8, reset, warm, dead, (h, w), (bh, bw) = case
     rng = np.random.default_rng(0)
@@ -66,7 +74,7 @@ def _fused_operands(case, dev, density=0.3):
     wq[rng.random(wq.shape) > density] = 0
     for t in dead:
         wq[t // kh, t % kh] = 0
-    pw = ops.pack_conv_weights(wq, kblk=128)
+    pw = ops.pack_conv_weights(wq, kblk=kblk)
     live = ops.predecode(pw, dev)
     x = rng.integers(0, 256 if u8 else 2, (t_in, 2, h, w, pw.cin)).astype(np.uint8)
     x[..., cin:] = 0
@@ -84,23 +92,53 @@ def _fused_operands(case, dev, density=0.3):
     return args, kw, pw
 
 
+def _packed_launch(args, kw, pw, dev):
+    return fp.fused_pipeline_packed(args[0], torch.from_numpy(pw.maskp).to(dev),
+                                    torch.from_numpy(pw.vals).to(dev), pw.tap_alive,
+                                    *args[3:], **kw)
+
+
 @pytest.mark.gpu
 def test_fused_pipeline_streams_weights_past_the_resident_budget(cuda):
     """A 7x7 layer at C = 256: its 64-channel weight slice (49*256*64 B =
-    784 KB) exceeds shared memory, so the predecoded kernel streams the
-    weights in K-chunks beside the inputs; still bit-equal. The packed mode
-    decodes into resident shared memory only and refuses the layer."""
+    784 KB) exceeds shared memory, so the kernel streams the weights in
+    K-chunks beside the inputs, copied (predecoded) or decoded chunk by
+    chunk (packed); both bit-equal to the plain version."""
     case = (7, 256, 64, 3, 3, False, "soft", True, (), (18, 32), (18, 32))
     args, kw, pw = _fused_operands(case, cuda, density=0.2)
-    spk, mem = fp.fused_pipeline(*args, **kw)
+    rspk, rmem = fp.fused_pipeline_reference(*args, **kw)
+    for spk, mem in (fp.fused_pipeline(*args, **kw), _packed_launch(args, kw, pw, cuda)):
+        torch.cuda.synchronize()
+        assert torch.equal(spk, rspk)
+        assert torch.equal(mem.view(torch.int32), rmem.view(torch.int32))
+
+
+STREAMED_PACKED_CASES = {
+    # (case as in CASES, kblk): K-chunks whose boundaries fall inside a tap
+    # (C = 264, 136 against 128- and 256-byte chunks), so inside a
+    # K-block's mask rows; 64-channel tiles that start inside a K-block
+    # (KBLK 40, 24) and span two or three of them; a Kout tail inside the
+    # last K-block; dead taps; T = 3, and one conv driving 4 LIF steps
+    "5x5-c264-k100-kblk40": ((5, 264, 100, 3, 3, False, "soft", True, (0, 7),
+                              (18, 32), (18, 32)), 40),
+    "7x7-c136-k56-kblk24-mixed": ((7, 136, 56, 1, 4, False, "hard", True, (24,),
+                                   (36, 64), (18, 32)), 24),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(STREAMED_PACKED_CASES))
+def test_fused_pipeline_packed_decodes_streamed_chunks(cuda, name):
+    case, kblk = STREAMED_PACKED_CASES[name]
+    args, kw, pw = _fused_operands(case, cuda, density=0.25, kblk=kblk)
+    spk, mem = _packed_launch(args, kw, pw, cuda)
+    kh, cin = case[0], case[1]
+    plan = fp.last_plan()  # the tile's weight slice exceeds the block's shared memory
+    assert plan["tile_channels"] * kh * kh * cin > plan["smem_bytes"]
     rspk, rmem = fp.fused_pipeline_reference(*args, **kw)
     torch.cuda.synchronize()
     assert torch.equal(spk, rspk)
     assert torch.equal(mem.view(torch.int32), rmem.view(torch.int32))
-    with pytest.raises(RuntimeError, match="launch failed"):
-        fp.fused_pipeline_packed(args[0], torch.from_numpy(pw.maskp).to(cuda),
-                                 torch.from_numpy(pw.vals).to(cuda), pw.tap_alive,
-                                 args[3], args[4], **kw)
 
 
 @pytest.mark.gpu
@@ -320,3 +358,43 @@ def test_new_kernels_refuse_bad_input(cuda):
         sl.fused_lif(torch.zeros((4, 8, 2), device=cuda).transpose(0, 2))
     with pytest.raises(ValueError, match="aligned"):
         sl.fused_lif(torch.zeros(65, device=cuda)[1:].reshape(1, 8, 8))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lengths,slots", [((1, 4, 2, 5, 3, 1, 2, 6, 1, 3), 4), ((6,), 2)],
+                         ids=["join-leave", "steady-double-buffered"])
+def test_engine_on_the_card_equals_solo_sessions(cuda, lengths, slots, monkeypatch):
+    """The megabatched Engine on the card (smoke config, kernel executor):
+    staggered joins and leaves over 4 slots, and one steady 6-frame stream
+    whose every tick after the first takes the frames uploaded on the side
+    stream during the tick before. Every served head and detection is
+    bit-equal to a solo session replay; 27 fused launches per tick."""
+    cfg = dataclasses.replace(smoke_config(), conv_exec="pallas")
+    params, bn, rng = demo_weights(cfg, device=cuda)
+    det = sy.compile_detector(cfg, params, bn, device=cuda)
+    h, w = cfg.input_hw
+    reqs = [FrameRequest(rid=r, frames=(rng.integers(0, 256, (n, h, w, 3)) / 255.0)
+                         .astype(np.float32)) for r, n in enumerate(lengths)]
+    eng = Engine(det, n_slots=slots)
+    offsets = []
+    real = eng.core._upload
+    monkeypatch.setattr(eng.core, "_upload", lambda active, offset=0:
+                        offsets.append(offset) or real(active, offset))
+    for fr in reqs:
+        assert eng.submit(fr)
+    before = fp.backend.launches[fp.KERNEL]
+    assert eng.run().status == "drained"
+    torch.cuda.synchronize()
+    ticks = len(eng.core.step_wall)
+    assert fp.backend.launches[fp.KERNEL] - before == 27 * ticks
+    assert len(eng.core.step_device_ms) == ticks
+    if len(lengths) == 1:
+        assert offsets == [0] + [1] * 5
+    for fr in reqs:
+        solo = det.new_session(batch=1)
+        for k, f in enumerate(fr.frames):
+            step = solo.step(f[None])
+            assert np.array_equal(fr.heads[k], step.head[0].cpu().numpy()), (fr.rid, k)
+            for name in ("boxes", "scores", "classes", "valid"):
+                assert np.array_equal(getattr(fr.out[k], name),
+                                      getattr(step.detections, name)[0].cpu().numpy())

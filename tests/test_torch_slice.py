@@ -217,7 +217,9 @@ def test_import_leaves_jax_out():
         "repro_torch.train.checkpoint, repro_torch.eval.harness, repro_torch.core.energy, "
         "repro_torch.kernels.ref, repro_torch.kernels.spike_lif, "
         "repro_torch.kernels.bitmask_matmul, repro_torch.benchmarks.kernel_bench, "
-        "repro_torch.benchmarks.e2e_detector, repro_torch.benchmarks.kernel_phases\n"
+        "repro_torch.benchmarks.e2e_detector, repro_torch.benchmarks.kernel_phases, "
+        "repro_torch.serve.engine, repro_torch.benchmarks.serve_bench, "
+        "repro_torch.launch.serve\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad); sys.exit(1 if bad else 0)"
