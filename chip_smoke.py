@@ -76,6 +76,22 @@ h. Join and leave: 10 ``FrameRequest`` streams of staggered lengths through
    (frames/s, tick percentiles, host and device ms, peak memory; 3 streams
    against solo replays). The serve CLI once at full width.
 
+Training (``repro_torch.eval.harness``, ``repro_torch.train``), no kernel on
+its path:
+
+i. Three train steps of ``CONFIG`` at batch 2 under ``ft.Supervisor`` and a
+   ``Heartbeat`` (checkpoints every 2 steps): per step the device ms (CUDA
+   events), the wall ms and a finite loss; the peak memory; the save and
+   ``save_async`` ms; no kernel launched. One step on the card against the
+   same step on the CPU at ``harness.demo_config()`` (spikes equal; loss,
+   gradients, parameters and tdBN state within the CPU parity tests'
+   bounds). The trained weights pruned 0.8 and fake-quantized, saved as a
+   detector checkpoint and restored bit-equal, then served by
+   ``compile_detector`` with the kernel executor: 27 fused launches, head,
+   spikes, ``valid`` and ``classes`` equal to the dense executor's. The
+   training CLI (``python -m repro_torch.launch.train_detector --steps 4
+   --eval-images 4``) exits 0.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error and times.
 """
@@ -84,6 +100,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -107,6 +124,7 @@ FFN_DECODE_TOKENS = 16  # a decode step: the format's use, bound by the weights'
 E2E_REPS = 100  # timed detect() calls per executor at 576x1024 (~10 s in all)
 ENGINE_LENGTHS = (1, 4, 2, 5, 3, 1, 2, 6, 1, 3)  # frames per stream, the join/leave run
 LOAD_STREAMS, LOAD_FRAMES = (8, 64), 4
+TRAIN_STEPS, TRAIN_BATCH = 3, 2  # phase i: full-width train steps under the Supervisor
 
 
 def card() -> dict:
@@ -770,6 +788,243 @@ def phase_benchmarks(dev, tag) -> dict:
     return {"bench": bench, "bench_launches": bench_launches, "e2e": e2e,
             "e2e_launches": e2e_launches}
 
+def train_step_on(dev, cfg, ocfg, params, bn, batch) -> dict:
+    """One train step (loss and gradients, then AdamW) on ``dev`` from the
+    host tensors ``params``/``bn`` and a numpy batch; results on the host."""
+    from repro_torch import tree as tu
+    from repro_torch.eval import harness
+    from repro_torch.models import snn_yolo as sy
+    from repro_torch.train import optimizer as opt
+
+    p = tu.tree_map(lambda t: t.to(dev), params)
+    b = tu.tree_map(lambda t: t.to(dev), bn)
+    with sy._no_tf32():
+        loss, grads, new_bn, aux = harness.loss_and_grads(
+            cfg, p, b, torch.from_numpy(batch["image"]).to(dev),
+            torch.from_numpy(batch["target"]).to(dev))
+        new_p, _ = opt.apply_updates(p, grads, opt.init_state(p, ocfg), ocfg)
+    host = lambda tree: tu.tree_map(lambda t: t.detach().cpu(), tree)  # noqa: E731
+    return {"loss": float(loss), "grads": host(grads), "bn": host(new_bn),
+            "params": host(new_p), "spikes": host(aux["spikes"])}
+
+
+def compare_train_steps(ref: dict, got: dict, lr: float, grad_clip: float) -> dict:
+    """The card's train step against the CPU's, to the tolerances of
+    ``tests/test_torch_train.py``: spikes equal (a flip is reported with
+    its layer), loss within 1e-5 relative, each gradient leaf within
+    1e-4·max|g| + 1e-7, the new tdBN state within 1e-6 (a mean against the
+    larger of max|mean| and max sqrt(var)), updated parameters within
+    1e-6·max|p| where the clipped gradient |ĝ| ≥ 1e-6 (Adam's ĝ/(|ĝ| + eps)
+    is well conditioned there) and within 2·lr elsewhere. Returns the worst
+    error of each, as a fraction of its bound."""
+    from repro_torch import tree as tu
+
+    flips = {k: int((got["spikes"][k] != v).sum()) for k, v in ref["spikes"].items()}
+    if any(flips.values()):
+        raise AssertionError(f"card and CPU spikes differ, flips per layer: {flips}")
+    worst = {"loss": abs(got["loss"] - ref["loss"]) / abs(ref["loss"]) / 1e-5}
+    gnorm = float(torch.sqrt(sum(torch.sum(g.double() ** 2) for g in tu.leaves(ref["grads"]))))
+    clip = min(1.0, grad_clip / max(gnorm, 1e-12))
+    worst["grads"] = worst["params"] = worst["bn"] = 0.0
+    for g, g_ref, p, p_ref in zip(tu.leaves(got["grads"]), tu.leaves(ref["grads"]),
+                                  tu.leaves(got["params"]), tu.leaves(ref["params"])):
+        worst["grads"] = max(worst["grads"], float((g - g_ref).abs().max())
+                             / (1e-4 * float(g_ref.abs().max()) + 1e-7))
+        scale = 1e-6 * float(p_ref.abs().max())
+        tol = torch.where(g_ref.abs() * clip >= 1e-6, scale, 2 * lr + scale)
+        worst["params"] = max(worst["params"], float(((p - p_ref).abs() / tol).max()))
+    for name, st in ref["bn"].items():
+        scale = max(float(st["mean"].abs().max()), float(st["var"].sqrt().max()))
+        worst["bn"] = max(worst["bn"],
+                          float((got["bn"][name]["mean"] - st["mean"]).abs().max()) / scale / 1e-6,
+                          float((got["bn"][name]["var"] - st["var"]).abs().max())
+                          / float(st["var"].abs().max()) / 1e-6)
+    if any(v > 1 for v in worst.values()):
+        raise AssertionError(f"card step differs from the CPU step past its bounds: {worst}")
+    return {"flips": flips, "worst_over_bound": worst}
+
+
+def phase_train(dev, tag) -> dict:
+    """(i) Training on the card. Three ``train_step``s of the full-width
+    ``CONFIG`` (576×1024, block 18×32, FXP8 STE weights, mixed (1, 3) T) at
+    batch TRAIN_BATCH under ``ft.Supervisor`` + ``Heartbeat`` (save_every
+    2), each step's device ms (CUDA events) and wall ms, the loss (finite),
+    peak memory, and the Supervisor's ``save`` and a ``save_async`` ms.
+    Then: one step on the card against the same step on the CPU at
+    ``demo_config``; the trained weights pruned 0.8, fake-quantized, saved
+    as a detector checkpoint and restored bit-equal; served through
+    ``compile_detector(pallas)`` (27 fused launches) with spikes, ``valid``
+    and ``classes`` equal to the dense executor's; the training CLI at
+    ``demo_config``."""
+    import tempfile
+
+    from repro_torch import backend
+    from repro_torch import tree as tu
+    from repro_torch.benchmarks import serve_bench
+    from repro_torch.configs.snn_det import CONFIG
+    from repro_torch.core import pruning, quant
+    from repro_torch.data import synthetic_detection as sd
+    from repro_torch.eval import harness
+    from repro_torch.kernels import fused_pipeline as fp
+    from repro_torch.models import snn_yolo as sy
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train import ft
+    from repro_torch.train import optimizer as opt
+
+    cfg = dataclasses.replace(CONFIG, arch_id="snn-det-train")
+    ocfg = harness.train_config(TRAIN_STEPS)
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    stream = sd.batches(TRAIN_BATCH, hw=cfg.input_hw, steps=TRAIN_STEPS,
+                        grid_div=harness.grid_div(cfg))
+    batches = list(stream)  # made before the timed steps: set-up, not training
+    rows = []
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def init_state():
+        params, bn = sy.init_params(cfg, seed=SEED, device=dev)
+        return {"params": params, "bn": bn, "opt": opt.init_state(params, ocfg)}
+
+    def step_fn(state, step):
+        b = batches[step]
+        images = torch.from_numpy(b["image"]).to(dev)
+        targets = torch.from_numpy(b["target"]).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        params, bn, o, loss = harness.train_step(cfg, ocfg, state["params"], state["bn"],
+                                                 state["opt"], images, targets)
+        stop.record()
+        torch.cuda.synchronize()
+        rows.append({"step": step, "device_ms": start.elapsed_time(stop),
+                     "wall_ms": (time.perf_counter() - t0) * 1e3, "loss": float(loss)})
+        if not np.isfinite(rows[-1]["loss"]):
+            raise AssertionError(f"non-finite loss at step {step}")
+        print(json.dumps({"phase": "train_step", **rows[-1], **tag}), flush=True)
+        return {"params": params, "bn": bn, "opt": o}
+
+    real_save, save_ms = ckpt.save, []
+
+    def timed_save(*a, **k):
+        t0 = time.perf_counter()
+        out = real_save(*a, **k)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    backend.reset_launches()
+    sup = ft.Supervisor(ckpt_root=os.path.join(root, "state"), save_every=2,
+                        heartbeat=ft.Heartbeat(os.path.join(root, "state", "heartbeat.json")))
+    ckpt.save = timed_save
+    try:
+        with sy._no_tf32():
+            state = sup.run(init_state=init_state, state_template=init_state, step_fn=step_fn,
+                            n_steps=TRAIN_STEPS)
+    finally:
+        ckpt.save = real_save
+    torch.cuda.synchronize()
+    train_launches = dict(backend.launches)
+    if any(train_launches.values()):
+        raise AssertionError(f"the train steps launched kernels: {train_launches}")
+    peak = torch.cuda.max_memory_allocated()
+    if (sup.restarts or sup.heartbeat.last()["step"] != TRAIN_STEPS - 1
+            or len(rows) != TRAIN_STEPS):
+        raise AssertionError(f"supervised run ended at {sup.heartbeat.last()}")
+    # one more step on the last batch, outside the run: its device time by
+    # kernel. (A step issues thousands of launches, more than the device's
+    # launch queue holds, so it cannot be queued whole behind a spin kernel
+    # as device_ms does: the profiler's kernel times are its device time.)
+    b = batches[-1]
+    images, targets = torch.from_numpy(b["image"]).to(dev), torch.from_numpy(b["target"]).to(dev)
+
+    def one_step():
+        return harness.train_step(cfg, ocfg, state["params"], state["bn"], state["opt"],
+                                  images, targets)
+
+    with sy._no_tf32():
+        by_kernel = serve_bench.kernel_breakdown(one_step, dev)
+    steady = min(r["device_ms"] for r in rows[1:])  # the steadiest supervised step
+    t0 = time.perf_counter()
+    ckpt.save_async(os.path.join(root, "async"), TRAIN_STEPS, state)
+    async_return_ms = (time.perf_counter() - t0) * 1e3
+    ckpt.wait_pending()
+    async_ms = (time.perf_counter() - t0) * 1e3
+    train = {"config": cfg.arch_id, "input_hw": list(cfg.input_hw), "batch": TRAIN_BATCH,
+             "steps": rows, "peak_memory_bytes": peak,
+             "peak_memory_gib": peak / 2**30, "save_ms": save_ms,
+             "save_async_return_ms": async_return_ms, "save_async_committed_ms": async_ms,
+             "kernel_launches": train_launches, "by_kernel": by_kernel,
+             "device_idle_share": None if by_kernel is None
+             else 1 - by_kernel["total_ms"] / steady}
+    print(json.dumps({"phase": "train", **train, **tag}), flush=True)
+
+    # 1. the card's step against the CPU's, demo_config, the same inputs
+    dcfg = harness.demo_config()
+    dparams, dbn = sy.init_params(dcfg, seed=SEED, device="cpu")
+    dbatch = next(sd.batches(2, hw=dcfg.input_hw, steps=1, grid_div=harness.grid_div(dcfg)))
+    docfg = harness.train_config(1)
+    lr = float(opt.lr_schedule(docfg, torch.tensor(1, dtype=torch.int32)))
+    parity = compare_train_steps(
+        train_step_on(torch.device("cpu"), dcfg, docfg, dparams, dbn, dbatch),
+        train_step_on(dev, dcfg, docfg, dparams, dbn, dbatch), lr, docfg.grad_clip)
+    print(json.dumps({"phase": "train_card_vs_cpu", **parity, **tag}), flush=True)
+
+    # 2. prune, quantize, save, restore: bit-equal
+    pruned = pruning.prune_tree(state["params"], 0.8)
+    q = tu.tree_map(lambda x: quant.fake_quant_tensor(x, 8) if x.dim() == 4 else x, pruned)
+    det_root = os.path.join(root, "detector")
+    harness.save_detector_checkpoint(det_root, TRAIN_STEPS, q, state["bn"], cfg)
+    rcfg, rp, rbn, _ = harness.restore_detector_checkpoint(det_root, device=dev)
+    if rcfg != cfg:
+        raise AssertionError("the restored config differs")
+    for a, b in zip(tu.leaves({"p": q, "b": state["bn"]}), tu.leaves({"p": rp, "b": rbn})):
+        if a.dtype != b.dtype or not bits_equal(a, b):
+            raise AssertionError("a restored leaf differs from the saved one")
+
+    # 3. serve the restored weights: the fused kernel against the dense executor
+    pcfg = dataclasses.replace(rcfg, conv_exec="pallas")
+    det = harness.compile_eval_detector(pcfg, rp, rbn, device=dev)
+    oracle = harness.compile_eval_detector(dataclasses.replace(pcfg, conv_exec="dense"), rp,
+                                           rbn, device=dev)
+    frames = torch.from_numpy((np.random.default_rng(SEED).integers(
+        0, 256, (BATCH, *cfg.input_hw, 3)) / 255.0).astype(np.float32)).to(dev)
+    backend.reset_launches()
+    dets, head = det.detect(frames)
+    torch.cuda.synchronize()
+    serve_launches = backend.launches[fp.KERNEL]
+    odets, ohead = oracle.detect(frames)
+    if serve_launches != 27:
+        raise AssertionError(f"{serve_launches} fused launches serving the trained weights")
+    for f in ("valid", "classes"):
+        if not torch.equal(getattr(dets, f), getattr(odets, f)):
+            raise AssertionError(f"trained weights: detections.{f} differ from dense")
+    if not bits_equal(head, ohead):
+        raise AssertionError("trained weights: the kernel executor's head differs from dense")
+    _, _, aux = sy.forward(det.params, det.bn_state, frames, pcfg, plan=det.plan)
+    _, _, oaux = sy.forward(oracle.params, oracle.bn_state, frames, oracle.cfg,
+                            plan=oracle.plan)
+    for k, v in oaux["spikes"].items():
+        if not torch.equal(aux["spikes"][k].float(), v.float()):
+            raise AssertionError(f"trained weights: {k} spikes differ from dense")
+    served = {"launches": serve_launches, "valid": int(dets.valid.sum()),
+              "spike_rates": {k: float(v.float().mean()) for k, v in aux["spikes"].items()}}
+    print(json.dumps({"phase": "train_served", **served, **tag}), flush=True)
+
+    # 4. the training CLI at demo_config, on the card
+    t0 = time.perf_counter()
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train_detector", "--steps", "4",
+         "--eval-images", "4", "--ckpt", os.path.join(root, "cli")],
+        env={**os.environ, "PYTHONPATH": src}, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    print(json.dumps({"phase": "train_cli", "rc": cli.returncode, "seconds": cli_s,
+                      "tail": cli.stdout.splitlines()[-6:], **tag}), flush=True)
+    if cli.returncode != 0:
+        raise AssertionError(f"the training CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
+    shutil.rmtree(root)
+    return {"train": train, "parity": parity, "served": served, "cli_s": cli_s}
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -1010,6 +1265,12 @@ def main() -> int:
     engine = phase_engine(dev, det, tag)
     print(json.dumps({"phase": "elapsed", "after": "h", "s": time.perf_counter() - t_start}),
           flush=True)
+
+    # ---------------------------------------------------------- i. training
+    trained = phase_train(dev, tag)
+    print(json.dumps({"phase": "elapsed", "after": "i", "s": time.perf_counter() - t_start}),
+          flush=True)
+    train_launches = trained["train"]["kernel_launches"]
     bl, el = benches["bench_launches"], benches["e2e_launches"]
     lif0, mm0 = lif["rows"][0], mm["rows"][0]  # kernel_bench's own shapes
 
@@ -1045,6 +1306,8 @@ def main() -> int:
         "launches_e2e": el["fused_pipeline"],
         "e2e_wall_ms": {ex: r["wall_s"] * 1e3
                         for ex, r in benches["e2e"]["executors"].items()},
+        "launches_train_steps": train_launches.get("fused_pipeline", 0),
+        "launches_serving_trained_weights": trained["served"]["launches"],
     }, {
         "name": "gated_one_to_all",
         "route": "cuda",
@@ -1073,6 +1336,7 @@ def main() -> int:
         "launches_taps_forward": conv["taps_launches"]["gated"],
         "ms_12_shapes": sum(r["ms"] for r in gated["rows"][:12]),
         "launches_kernel_bench": bl["gated_one_to_all"],
+        "launches_train_steps": train_launches.get("gated_one_to_all", 0),
     }, {
         "name": "fused_lif",
         "route": "cuda",
@@ -1091,6 +1355,7 @@ def main() -> int:
         "check": "int8 spikes equal to the plain version at every shape",
         "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
                    for r in lif["rows"]],
+        "launches_train_steps": train_launches.get("spike_lif", 0),
     }, {
         "name": "bitmask_matmul",
         "route": "cuda",
@@ -1112,6 +1377,7 @@ def main() -> int:
                                       "bound_ms", "bound_by")} for r in mm["rows"]],
         "ptxas": ptxas.get("bitmask_matmul", []),
         "smem_bytes": sorted({r["plan"]["smem_bytes"] for r in mm["rows"]}),
+        "launches_train_steps": train_launches.get("bitmask_matmul", 0),
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,13 @@
 """Leaky integrate-and-fire dynamics and threshold-dependent batch norm
-(paper §I, §II-A). Counterpart of ``repro/core/lif.py``, forward only.
+(paper §I, §II-A). Counterpart of ``repro/core/lif.py``.
 
     v[t] = leak · v[t-1] + x[t];  s[t] = v[t] ≥ θ
-    hard reset: v = 0 where s;  soft: v −= θ where s;  none: no reset
+    hard reset: v = v·(1 − s);  soft: v −= θ·s;  none: no reset
+
+Training backpropagates through the spike with the STBP rectangular
+surrogate (Wu et al. 2019): ds/dv ≈ 1[|v − θ| < W/2] / W, W = 1, and no
+gradient to θ. The hard reset keeps its product form, so the gradient also
+flows through the reset by way of the surrogate.
 
 tdBN: y = α·θ·(x − μ)·rsqrt(σ² + ε)·γ + β, statistics pooled over every
 axis but the channel (time counts as batch).
@@ -15,6 +20,26 @@ import torch
 
 THRESHOLD = 0.5
 LEAK = 0.25
+SURROGATE_WIDTH = 1.0
+
+
+class _Spike(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v, threshold):
+        ctx.save_for_backward(v)
+        ctx.threshold = threshold
+        return (v >= threshold).to(v.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (v,) = ctx.saved_tensors
+        surrogate = ((v - ctx.threshold).abs() < SURROGATE_WIDTH / 2).to(g.dtype)
+        return g * surrogate / SURROGATE_WIDTH, None
+
+
+def spike_fn(v: torch.Tensor, threshold: float = THRESHOLD) -> torch.Tensor:
+    """Heaviside spike (f32 {0, 1}) with the rectangular surrogate gradient."""
+    return _Spike.apply(v, threshold)
 
 
 class LIFState(NamedTuple):
@@ -25,7 +50,7 @@ def lif_step(state: LIFState, x: torch.Tensor, *, threshold=THRESHOLD, leak=LEAK
              reset: str = "hard"):
     """One LIF step. Returns (new_state, spikes f32 {0,1})."""
     v = state.v * leak + x
-    s = (v >= threshold).to(v.dtype)
+    s = spike_fn(v, threshold)
     if reset == "hard":
         v_next = v * (1.0 - s)
     elif reset == "soft":

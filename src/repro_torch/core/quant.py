@@ -2,7 +2,8 @@
 
 Counterpart of ``repro/core/quant.py``. Symmetric per-tensor (or per-axis)
 FXP: q = clip(round(x / s), -128, 127), s = max|x| / 127, with
-round-half-to-even as ``jnp.round`` does.
+round-half-to-even as ``jnp.round`` does. Quantization-aware training
+passes the gradient straight through the fake quantization (STE).
 """
 from __future__ import annotations
 
@@ -32,9 +33,20 @@ def dequantize(qx: Quantized) -> torch.Tensor:
     return qx.q.float() * qx.scale
 
 
+class _FakeQuant(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, scale):
+        return torch.clamp(torch.round(x / scale), -INT8_MAX - 1, INT8_MAX) * scale
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def fake_quant(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
-    """Quantize → dequantize (forward only: this slice trains nothing)."""
-    return torch.clamp(torch.round(x / scale), -INT8_MAX - 1, INT8_MAX) * scale
+    """Quantize → dequantize. The gradient passes straight through to ``x``;
+    ``scale`` gets none."""
+    return _FakeQuant.apply(x, scale)
 
 
 def fake_quant_tensor(x: torch.Tensor, bits: int = 8) -> torch.Tensor:

@@ -1,43 +1,151 @@
-"""Restore a detector checkpoint the JAX package wrote
-(``repro/eval/harness.py::save_detector_checkpoint``): the
-``{"params", "bn"}`` leaves plus the ``detector_config.json`` sidecar that
-makes it self-describing. Counterpart of ``restore_detector_checkpoint``,
-read side only.
+"""Train, checkpoint and evaluate the detector: counterpart of
+``repro/eval/harness.py``.
+
+* :func:`demo_config` — the trainable-size detector (96×160, thinned
+  channels, 3 CSP stages, grid /16) the training launcher and the JAX
+  package's harness share.
+* :func:`train_steps` — AdamW on the synthetic split (or any
+  :class:`~repro_torch.data.detection_datasets.DetectionSource`), with
+  pruning masks for a mask-preserving fine-tune; :func:`train_step` is one
+  step of it and :func:`loss_and_grads` its differentiable half. TF32 stays
+  off throughout.
+* :func:`evaluate_detector` — mAP@IoU of a compiled detector on an eval
+  split (single host; the sharded evaluator is ROADMAP queue 1 item 5, as
+  is the train → prune → QAT → eval ``run_pipeline``).
+* :func:`save_detector_checkpoint` / :func:`restore_detector_checkpoint` —
+  ``{"params", "bn"}`` plus the ``detector_config.json`` sidecar that makes
+  a checkpoint self-describing, in the layout both packages read.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
+from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch import interop
+from repro_torch import tree as tu
+from repro_torch.configs.snn_det import CONFIG
+from repro_torch.data import detection_datasets as dd
+from repro_torch.eval import detection_map as dm
 from repro_torch.models import snn_yolo as sy
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.train import optimizer as opt
 
+# Evaluation-time postprocess settings: a low score threshold and a deep
+# detection budget — mAP integrates the whole precision-recall curve, so
+# the serving default (0.25) would clip the low-confidence tail.
+EVAL_SCORE_THRESHOLD = 0.01
+EVAL_MAX_DETECTIONS = 64
+
+# sidecar inside each committed step dir; makes a detector checkpoint
+# self-describing (restore rebuilds the matching SNNDetConfig from it)
 DETECTOR_CONFIG_FILE = "detector_config.json"
 
 
+def demo_config(*, conv_exec: str = "dense", weight_bits: int = 8) -> sy.SNNDetConfig:
+    """The trainable-size detector: 96×160 input, thinned channels, 3 CSP
+    stages (grid /16), mixed (1, 3) time steps, plain SAME conv; block
+    (6, 10) divides every feature map, for block-conv evaluation."""
+    return dataclasses.replace(
+        CONFIG,
+        arch_id="snn-det-eval",
+        input_hw=(96, 160), stem_channels=8, conv_block_channels=16,
+        stage_channels=((16, 16), (16, 32), (32, 64)), pooled_stages=3,
+        use_block_conv=False, block_hw=(6, 10),
+        weight_bits=weight_bits, conv_exec=conv_exec,
+    )
+
+
+def grid_div(cfg: sy.SNNDetConfig) -> int:
+    """Dataset grid divisor matching the model's pooling depth."""
+    return 2 ** (cfg.pooled_stages + 1)
+
+
+# ---------------------------------------------------------------- evaluate --
+
+
+def evaluate_detector(det, *, n_images: int = 32, split: str = "val", batch: int = 8,
+                      iou_threshold: float = 0.5, sharded=None,
+                      source: Optional[dd.DetectionSource] = None) -> dict:
+    """mAP@iou of a :class:`~repro_torch.serve.detector.CompiledDetector` on
+    an eval split of ``source`` (the synthetic generator by default). The
+    handle's own postprocess settings are used: build it with
+    :func:`compile_eval_detector` for evaluation thresholds."""
+    if sharded is not None:
+        raise NotImplementedError(
+            "sharded evaluation is not ported yet (ROADMAP.md queue 1 item 5); "
+            "pass sharded=None"
+        )
+    source = source or dd.SyntheticSource()
+    cap = source.num_eval_images(split)
+    if cap is not None:
+        n_images = min(n_images, cap)
+    cfg = det.cfg
+    images, gts = source.eval_set(
+        n_images, split=split, hw=cfg.input_hw, grid_div=grid_div(cfg),
+        num_anchors=cfg.num_anchors, num_classes=cfg.num_classes,
+    )
+    preds = []
+    for i in range(0, n_images, batch):
+        dets, _ = det.detect(torch.from_numpy(images[i : i + batch]))
+        preds.extend(dm.detections_to_predictions(type(dets)(*(t.cpu().numpy() for t in dets))))
+    report = dm.evaluate_detections(
+        preds, gts, num_classes=cfg.num_classes, iou_threshold=iou_threshold
+    )
+    report["split"] = split
+    return report
+
+
+def compile_eval_detector(cfg, params, bn, **kw):
+    """compile_detector with evaluation postprocess settings."""
+    kw.setdefault("score_threshold", EVAL_SCORE_THRESHOLD)
+    kw.setdefault("max_detections", EVAL_MAX_DETECTIONS)
+    return sy.compile_detector(cfg, params, bn, **kw)
+
+
+# ------------------------------------------------------------- checkpoints --
+
+
+def save_detector_checkpoint(root: str, step: int, params, bn, cfg, *,
+                             extra_files=None) -> str:
+    """Commit ``{"params", "bn"}`` plus the full config as an atomic
+    detector checkpoint under ``root``; the config sidecar commits with the
+    weights. ``extra_files``: more {filename: bytes} sidecars (the config's
+    name is reserved). Returns the committed directory."""
+    blob = json.dumps(sy.config_to_dict(cfg), indent=1).encode()
+    files = dict(extra_files or {})
+    if DETECTOR_CONFIG_FILE in files:
+        raise ValueError(f"extra_files may not shadow {DETECTOR_CONFIG_FILE!r}")
+    files[DETECTOR_CONFIG_FILE] = blob
+    return ckpt.save(root, step, {"params": params, "bn": bn}, extra_files=files)
+
+
 def checkpoint_template(cfg: sy.SNNDetConfig) -> dict:
-    """The leaves a detector checkpoint of ``cfg`` holds, as (shape, dtype)."""
+    """The leaves a detector checkpoint of ``cfg`` holds, as ShapeDtype."""
+    sd = ckpt.ShapeDtype
     params, bn = {}, {}
     for name, shape in sy.layer_shapes(cfg).items():
-        params[name] = {"w": (shape, np.float32)}
+        params[name] = {"w": sd(shape, np.float32)}
         if name != "head":
             cout = shape[-1]
-            params[name]["gamma"] = ((cout,), np.float32)
-            params[name]["beta"] = ((cout,), np.float32)
-            bn[name] = {"mean": ((cout,), np.float32), "var": ((cout,), np.float32),
-                        "count": ((), np.int32)}
+            params[name]["gamma"] = sd((cout,), np.float32)
+            params[name]["beta"] = sd((cout,), np.float32)
+            bn[name] = {"mean": sd((cout,), np.float32), "var": sd((cout,), np.float32),
+                        "count": sd((), np.int32)}
     return {"params": params, "bn": bn}
 
 
 def restore_detector_checkpoint(root: str, *, step: int | None = None,
                                 cfg: sy.SNNDetConfig | None = None, device=None):
-    """(cfg, params, bn, step) from a detector checkpoint, the tensors on
-    ``device`` (default: the card). ``step`` defaults to the latest
-    committed one; ``cfg`` to the checkpoint's own sidecar (pass it to
-    restore a bare train-state checkpoint, which has none)."""
+    """(cfg, params, bn, step) from a detector checkpoint either package
+    wrote, the tensors on ``device`` (default: the card). ``step`` defaults
+    to the latest committed one; ``cfg`` to the checkpoint's own sidecar
+    (pass it to restore a bare train-state checkpoint, which has none; its
+    optimizer leaves are ignored)."""
     d, step = ckpt.step_dir(root, step)
     if cfg is None:
         path = os.path.join(d, DETECTOR_CONFIG_FILE)
@@ -51,3 +159,75 @@ def restore_detector_checkpoint(root: str, *, step: int | None = None,
     state, step = ckpt.restore(root, checkpoint_template(cfg), step=step)
     params, bn, _ = interop.params_from_numpy(state["params"], state["bn"], device=device)
     return cfg, params, bn, step
+
+
+# ------------------------------------------------------------------- train --
+
+
+def train_config(steps: int, lr_peak: float = 2e-3) -> opt.AdamWConfig:
+    """:func:`train_steps`' optimizer settings for a run of ``steps``."""
+    return opt.AdamWConfig(
+        lr_peak=lr_peak, lr_init=lr_peak / 10, lr_final=lr_peak / 100,
+        warmup_steps=max(steps // 15, 1), total_steps=steps, weight_decay=1e-3,
+    )
+
+
+def loss_and_grads(cfg: sy.SNNDetConfig, params, bn, images, targets):
+    """The YOLO loss of one batch through the train-mode forward, and its
+    gradients. Returns (loss, grads like params, new bn state, aux)."""
+    live = [p.detach().requires_grad_(True) for p in tu.leaves(params)]
+    head, new_bn, aux = sy.forward(tu.unflatten_like(params, live), bn, images, cfg, train=True)
+    loss = sy.yolo_loss(head, targets)
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, live)]
+    return loss.detach(), tu.unflatten_like(params, grads), new_bn, aux
+
+
+def train_step(cfg: sy.SNNDetConfig, ocfg: opt.AdamWConfig, params, bn, opt_state,
+               images, targets, *, grad_mask=None):
+    """One AdamW step. ``grad_mask``: a tree of {0, 1} masks like params
+    (:func:`repro_torch.core.pruning.mask_tree`) — masked entries get zero
+    gradient and are zeroed again after the update. Returns (params, bn,
+    opt_state, loss)."""
+    loss, grads, new_bn, _ = loss_and_grads(cfg, params, bn, images, targets)
+    if grad_mask is not None:
+        grads = tu.tree_map(lambda g, m: g * m, grads, grad_mask)
+    new_p, new_o = opt.apply_updates(params, grads, opt_state, ocfg)
+    if grad_mask is not None:
+        new_p = tu.tree_map(lambda w, m: w * m, new_p, grad_mask)
+    return new_p, new_bn, new_o, loss
+
+
+def train_steps(cfg: sy.SNNDetConfig, *, steps: int, batch: int = 4, seed: int = 0,
+                lr_peak: float = 2e-3, params=None, bn=None, opt_state=None,
+                grad_mask=None, start_index: int = 0, log_every: int = 50,
+                verbose: bool = True, source: Optional[dd.DetectionSource] = None,
+                device=None):
+    """Train (or fine-tune) the detector on a train split, TF32 off.
+
+    ``params``/``bn`` default to :func:`snn_yolo.init_params` at ``seed`` on
+    ``device`` (default: the card); given, they set the device.
+    ``grad_mask``: see :func:`train_step`. ``start_index``: first dataset
+    sample index — a fine-tune passes the samples an earlier stage consumed
+    so it sees fresh data. Returns (params, bn, opt_state, losses)."""
+    ocfg = train_config(steps, lr_peak)
+    if params is None:
+        params, bn = sy.init_params(cfg, seed=seed, device=device)
+    dev = tu.leaves(params)[0].device
+    if opt_state is None:
+        opt_state = opt.init_state(params, ocfg)
+    source = source or dd.SyntheticSource()
+    stream = source.batches(batch, hw=cfg.input_hw, steps=steps,
+                            grid_div=grid_div(cfg), num_anchors=cfg.num_anchors,
+                            num_classes=cfg.num_classes, start_index=start_index)
+    losses = []
+    with sy._no_tf32():
+        for k, b in enumerate(stream):
+            params, bn, opt_state, loss = train_step(
+                cfg, ocfg, params, bn, opt_state, torch.from_numpy(b["image"]).to(dev),
+                torch.from_numpy(b["target"]).to(dev), grad_mask=grad_mask,
+            )
+            losses.append(float(loss))
+            if verbose and k % log_every == 0:
+                print(f"    step {k:4d} loss {losses[-1]:8.4f}")
+    return params, bn, opt_state, losses

@@ -1,4 +1,4 @@
-"""Bring the JAX package's detector state into the port.
+"""Carry detector and training state between the JAX package and the port.
 
 :func:`params_from_numpy` takes the JAX parameter, tdBN-state and
 (optionally) fused-kernel affine-bundle pytrees as numpy arrays — e.g.
@@ -7,14 +7,20 @@ checkpoint — and returns the port's. The affine bundle carries
 ``rsqrt(var + eps)`` as the JAX package rounded it; handing it to
 ``compile_detector(..., affines=...)`` keeps every spike decision bit-equal
 to the reference, where recomputing it with ``torch.rsqrt`` would not be.
+
+:func:`opt_state_from_numpy` takes a JAX ``AdamWState`` (f32 or int8
+``Q8Leaf`` moments) with numpy leaves and returns the port's;
+:func:`tree_to_numpy` goes the other way for any of the port's trees.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch import tree as tu
 from repro_torch.backend import resolve_device
 from repro_torch.kernels.bitmask_matmul import PackedMatmulWeights
+from repro_torch.train import optimizer as opt
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -59,3 +65,28 @@ def packed_matmul_from_numpy(maskp, vals, shape, kblk: int, nblk: int, *,
         maskp=_tensor(maskp, dev), vals=_tensor(vals, dev),
         shape=tuple(int(d) for d in shape), kblk=int(kblk), nblk=int(nblk),
     )
+
+
+def opt_state_from_numpy(state_np, *, device=None) -> opt.AdamWState:
+    """A JAX ``AdamWState`` whose leaves are numpy arrays (e.g.
+    ``jax.tree_util.tree_map(np.asarray, state)``) → the port's, on
+    ``device`` (default: the card). Moment leaves with ``q`` and ``scale``
+    fields become :class:`~repro_torch.train.optimizer.Q8Leaf`."""
+    dev = resolve_device(device)
+
+    def moments(tree):
+        if isinstance(tree, dict):
+            return {k: moments(v) for k, v in tree.items()}
+        if hasattr(tree, "q") and hasattr(tree, "scale"):
+            return opt.Q8Leaf(_tensor(tree.q, dev), _tensor(tree.scale, dev))
+        return _tensor(tree, dev)
+
+    return opt.AdamWState(step=_tensor(state_np.step, dev), m=moments(state_np.m),
+                          v=moments(state_np.v))
+
+
+def tree_to_numpy(tree):
+    """The port's tree (dicts, NamedTuples, sequences of tensors) with every
+    tensor copied to a host numpy array; the containers keep their types."""
+    return tu.tree_map(lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                       else np.asarray(x), tree)

@@ -1,4 +1,5 @@
-"""The paper's SNN object detector (§II, Fig 1/2), snn mode, for inference.
+"""The paper's SNN object detector (§II, Fig 1/2) and its ANN/QNN/BNN
+baselines (Table II), for inference and training.
 
 Counterpart of ``repro/models/snn_yolo.py`` with the same topology, layer
 names, parameter shapes and config fields:
@@ -11,8 +12,10 @@ names, parameter shapes and config fields:
 Tensors are NHWC with time leading: (T, N, H, W, C). Parameters are a
 dict {layer: {"w", "gamma", "beta"}}; tdBN state {layer: {"mean", "var",
 "count"}}. The ANN→SNN conversion's operating point runs here too: rate
-encoding, the rate-gated pool, ``pool_drive`` and ``taps=``. Still to
-port: the ann/qnn/bnn modes (they raise). :func:`layer_specs` describes
+encoding, the rate-gated pool, ``pool_drive`` and ``taps=``. Training
+(``forward(..., train=True)`` without a plan) runs the differentiable
+fake-quant float path: STE weights, tdBN batch statistics, the surrogate
+spike; :func:`yolo_loss` is its objective. :func:`layer_specs` describes
 the network to the energy model (:mod:`repro_torch.core.energy`).
 """
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Any
 
 import torch
 
+from repro_torch import tree as tu
 from repro_torch.backend import resolve_device
 from repro_torch.core import block_conv as bc
 from repro_torch.core import energy as en
@@ -171,6 +175,10 @@ def init_params(cfg: SNNDetConfig, *, seed: int = 0, device=None):
     return params, bn
 
 
+def param_count(params) -> int:
+    return sum(leaf.numel() for leaf in tu.leaves(params))
+
+
 def default_bn_state(params) -> dict:
     """Fresh inference-time tdBN state (mean 0, var 1) matching ``params``."""
     return {
@@ -213,7 +221,7 @@ def _conv_t(x_t, layer_p, cfg: SNNDetConfig, *, name=None, plan=None):
     when there is a plan, else the fake-quant float path."""
     if plan is not None and name is not None and name in plan.layers:
         return cplan.run_conv(x_t, plan.layers[name], cfg)
-    w = quant.fake_quant_tensor(layer_p["w"], cfg.weight_bits) if cfg.weight_bits else layer_p["w"]
+    w = _maybe_quant_w(layer_p["w"], cfg)
     t, n = x_t.shape[:2]
     x = x_t.reshape((t * n,) + tuple(x_t.shape[2:])).float()
     if cfg.use_block_conv and w.shape[0] > 1:
@@ -224,17 +232,55 @@ def _conv_t(x_t, layer_p, cfg: SNNDetConfig, *, name=None, plan=None):
     return y.reshape((t, n) + tuple(y.shape[1:]))
 
 
+def _maybe_quant_w(w, cfg: SNNDetConfig):
+    if cfg.weight_bits and cfg.mode != "bnn":
+        return quant.fake_quant_tensor(w, cfg.weight_bits)
+    if cfg.mode == "bnn":
+        # binary weights scaled by the mean magnitude (XNOR-style); |w| as a
+        # select, whose gradient at 0 is 1 as jnp.abs's is
+        return torch.sign(w) * torch.where(w >= 0, w, -w).mean()
+    return w
+
+
 def _tdbn(x_t, layer_p, layer_s, cfg, train, rinv=None):
+    """tdBN over (T, N, H, W, C). The new running statistics carry no
+    autograd history (the JAX package returns them as an ``aux``)."""
     params = lifm.TdBNParams(gamma=layer_p["gamma"], beta=layer_p["beta"])
     state = lifm.TdBNState(mean=layer_s["mean"], var=layer_s["var"], count=layer_s["count"])
     y, new = lifm.tdbn_apply(params, state, x_t, threshold=cfg.threshold, training=train,
                              rinv=rinv)
-    return y, {"mean": new.mean, "var": new.var, "count": new.count}
+    return y, {"mean": new.mean.detach(), "var": new.var.detach(), "count": new.count}
+
+
+def _activation(y_t, cfg: SNNDetConfig, *, v0=None):
+    """Post-norm nonlinearity per model family. Returns (act, v_final);
+    ``v0`` warm-starts the LIF membrane, and v_final is None for the
+    stateless modes."""
+    if cfg.mode == "snn":
+        if v0 is None and cfg.v_init:
+            v0 = torch.full(tuple(y_t.shape[1:]), cfg.v_init, dtype=y_t.dtype,
+                            device=y_t.device)
+        init = None if v0 is None else lifm.LIFState(v=v0)
+        spikes, final = lifm.lif_over_time(
+            y_t, threshold=cfg.threshold, leak=cfg.leak, reset=cfg.reset, init=init
+        )
+        return spikes, final.v
+    if cfg.mode == "ann":
+        return torch.relu(y_t), None
+    if cfg.mode == "qnn":
+        act = torch.relu(y_t)
+        qmax = 2**cfg.act_bits - 1
+        scale = torch.clamp(act.amax(), min=1e-6) / qmax
+        return quant.fake_quant(act, scale), None
+    if cfg.mode == "bnn":
+        return lifm.spike_fn(y_t, 0.0), None  # binary activation, surrogate gradient
+    raise ValueError(cfg.mode)
 
 
 def _conv_bn_act(x_t, layer_p, layer_s, cfg, train, *, out_t=None, name=None,
                  plan=None, v0=None, affine=None, taps=None, pool=False):
-    """Conv → tdBN → LIF. Returns (spikes, new_bn_state, final membrane).
+    """Conv → tdBN → activation (the LIF in snn mode). Returns (act,
+    new_bn_state, final membrane or None).
 
     Mixed time steps: with out_t > x_t.shape[0] == 1 the conv runs once and
     drives every LIF step. At eval on the kernel executor the whole chain
@@ -243,15 +289,16 @@ def _conv_bn_act(x_t, layer_p, layer_s, cfg, train, *, out_t=None, name=None,
     the layer's name) or pooled before the LIF.
 
     ``pool``: this layer's output feeds a 2×2 pool. With ``cfg.pool_drive``
-    the pool runs here, a max-pool of the tdBN drive before the LIF
+    (snn mode) the pool runs here, a max-pool of the tdBN drive before the LIF
     (whatever ``pool_mode`` is), and the caller skips its own pool. In eval
     mode the tdBN takes rsqrt(var + eps) from ``affine`` when given."""
     t_out = out_t or x_t.shape[0]
-    pool_inside = pool and cfg.pool_drive
+    pool_inside = pool and cfg.pool_drive and cfg.mode == "snn"
     if (
         not train
         and taps is None
         and not pool_inside
+        and cfg.mode == "snn"
         and cfg.conv_exec == "pallas"
         and plan is not None
         and name in plan.layers
@@ -275,18 +322,41 @@ def _conv_bn_act(x_t, layer_p, layer_s, cfg, train, *, out_t=None, name=None,
         taps[name] = y_t
     if pool_inside:
         y_t = _maxpool_t(y_t)
-    if v0 is None and cfg.v_init:
-        v0 = torch.full(tuple(y_t.shape[1:]), cfg.v_init, dtype=y_t.dtype, device=y_t.device)
-    init = None if v0 is None else lifm.LIFState(v=v0)
-    spikes, final = lifm.lif_over_time(
-        y_t, threshold=cfg.threshold, leak=cfg.leak, reset=cfg.reset, init=init
-    )
-    return spikes, new_s, final.v
+    act, v_final = _activation(y_t, cfg, v0=v0)
+    return act, new_s, v_final
+
+
+class _MaxPool2x2(torch.autograd.Function):
+    """2×2 max-pool of (T, N, H, W, C) whose gradient goes to the first
+    maximum of each window in row-major order, where XLA's select-and-
+    scatter sends it (``amax`` would split it among tied maxima, and binary
+    spikes tie all the time)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        t, n, h, w, c = x.shape
+        win = x.reshape(t, n, h // 2, 2, w // 2, 2, c).permute(0, 1, 2, 4, 6, 3, 5)
+        win = win.reshape(t, n, h // 2, w // 2, c, 4)
+        idx = win.argmax(dim=-1, keepdim=True)
+        ctx.save_for_backward(idx)
+        return win.gather(-1, idx).squeeze(-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        t, n, h2, w2, c, _ = idx.shape
+        gw = torch.zeros((t, n, h2, w2, c, 4), dtype=g.dtype, device=g.device)
+        gw.scatter_(-1, idx, g.unsqueeze(-1))
+        gw = gw.reshape(t, n, h2, w2, c, 2, 2).permute(0, 1, 2, 5, 3, 6, 4)
+        return gw.reshape(t, n, 2 * h2, 2 * w2, c)
 
 
 def _maxpool_t(x_t):
     """2×2 spike max-pool == OR gate (the paper's max-pooling module).
-    Works on any dtype: uint8 spikes from the kernel, f32 from the oracle."""
+    Works on any dtype: uint8 spikes from the kernel, f32 from the oracle;
+    differentiable as JAX's ``reduce_window`` max is."""
+    if x_t.requires_grad and torch.is_grad_enabled():
+        return _MaxPool2x2.apply(x_t)
     t, n, h, w, c = x_t.shape
     return x_t.reshape(t, n, h // 2, 2, w // 2, 2, c).amax(dim=(3, 5))
 
@@ -303,23 +373,19 @@ def _rate_gated_pool_t(s_t):
 
 
 def _pool_t(s_t, cfg: SNNDetConfig):
-    """Pool a spike volume per ``cfg.pool_mode``: "rate" gates by rate,
-    anything else is the OR-gate max-pool."""
-    if cfg.pool_mode == "rate":
+    """Pool a spike volume per ``cfg.pool_mode``: "rate" gates by rate (snn
+    mode only: the other modes' activations are real-valued, where max is
+    max), anything else is the OR-gate max-pool."""
+    if cfg.mode == "snn" and cfg.pool_mode == "rate":
         return _rate_gated_pool_t(s_t)
     return _maxpool_t(s_t)
-
-
-def _check_supported(cfg: SNNDetConfig) -> None:
-    if cfg.mode != "snn":
-        raise NotImplementedError(
-            f"mode={cfg.mode!r} is not ported yet (ROADMAP.md, queue 1)"
-        )
 
 
 def forward(params, bn_state, images, cfg: SNNDetConfig, *, train: bool = False,
             plan=None, membrane=None, affines=None, taps=None):
     """images: (N, H, W, 3) in [0, 1]. Returns (head, new_bn_state, aux).
+    ``train=True`` normalises by the batch's statistics and returns the
+    moved running ones (detached); gradients flow when there is no plan.
 
     head: (N, gh, gw, anchors, 5 + classes) raw predictions.
     aux["spikes"]: per-macro-layer spikes; aux["membrane"]: each layer's
@@ -335,7 +401,13 @@ def forward(params, bn_state, images, cfg: SNNDetConfig, *, train: bool = False,
     any pool) under its name plus the raw head conv under "head" — the
     conversion front-end's probe; it keeps every layer off the fused
     kernel."""
-    _check_supported(cfg)
+    if cfg.conv_exec != "dense" and cfg.mode != "snn":
+        # the compressed executors take binary spikes; the other modes'
+        # activations are multibit floats and would be truncated
+        raise ValueError(
+            f"conv_exec={cfg.conv_exec!r} requires mode='snn' (got "
+            f"mode={cfg.mode!r}: activations are not binary spikes)"
+        )
     if cfg.conv_exec != "dense" and not cfg.weight_bits:
         raise ValueError(
             f"conv_exec={cfg.conv_exec!r} requires weight_bits > 0 (the "
@@ -351,7 +423,8 @@ def forward(params, bn_state, images, cfg: SNNDetConfig, *, train: bool = False,
             f"conv_exec={cfg.conv_exec!r} needs a compiled plan: use "
             "repro_torch.models.snn_yolo.compile_detector(cfg, params)"
         )
-    full_t = cfg.full_t
+    snn = cfg.mode == "snn"
+    full_t = cfg.full_t if snn else 1
     new_state = dict(bn_state)
     aff = affines or {}
     mem = membrane or {}
@@ -366,15 +439,15 @@ def forward(params, bn_state, images, cfg: SNNDetConfig, *, train: bool = False,
         )
         return s
 
-    pd = cfg.pool_drive  # the pooled layers pool their drive inside
+    pd = cfg.pool_drive and snn  # the pooled layers pool their drive inside
     x_t = images.float()[None]  # the encode layer sees the raw image once
-    s_t = cba(x_t, "encode", out_t=full_t if cfg.rate_encode else None, pool=True)
+    s_t = cba(x_t, "encode", out_t=full_t if cfg.rate_encode and snn else None, pool=True)
     aux["spikes"]["encode"] = s_t
     if not pd:
         s_t = _pool_t(s_t, cfg)
 
     out_t = full_t if cfg.mixed_time else s_t.shape[0]
-    if not cfg.mixed_time:
+    if not cfg.mixed_time and snn:
         s_t = s_t.expand((full_t,) + tuple(s_t.shape[1:]))
         out_t = full_t
     s_t = cba(s_t, "conv_block", out_t=out_t, pool=True)
@@ -397,11 +470,14 @@ def forward(params, bn_state, images, cfg: SNNDetConfig, *, train: bool = False,
     y_t = _conv_t(s_t, params["head"], cfg, name="head", plan=plan)
     if taps is not None:
         taps["head"] = y_t
-    head, new_mem["head"] = lifm.membrane_readout(
-        y_t, leak=cfg.leak, v0=mem.get("head"), return_final=True
-    )
-    if cfg.head_readout == "final":
-        head = new_mem["head"] / y_t.shape[0]
+    if snn:
+        head, new_mem["head"] = lifm.membrane_readout(
+            y_t, leak=cfg.leak, v0=mem.get("head"), return_final=True
+        )
+        if cfg.head_readout == "final":
+            head = new_mem["head"] / y_t.shape[0]
+    else:
+        head = y_t.mean(dim=0)
     n, gh, gw, _ = head.shape
     head = head.reshape(n, gh, gw, cfg.num_anchors, 5 + cfg.num_classes)
     return head, new_state, aux
@@ -519,3 +595,22 @@ def compile_detector(cfg: SNNDetConfig, params, bn_state=None, **kwargs):
     from repro_torch.serve.detector import CompiledDetector  # import cycle
 
     return CompiledDetector(cfg, params, bn_state, **kwargs)
+
+
+def yolo_loss(head, targets, anchors=DEFAULT_ANCHORS, *, l_coord=5.0, l_noobj=0.5):
+    """YOLOv2-style loss. targets: (N, gh, gw, A, 5+C) with [tx, ty, tw, th,
+    obj, one-hot classes]; obj ∈ {0, 1} marks the assigned anchors. tx/ty
+    are within-cell offsets, tw/th log-scale against the assigned anchor —
+    :func:`decode_head`'s inverse domain."""
+    obj_mask = targets[..., 4]
+    noobj_mask = 1.0 - obj_mask
+    pxy = torch.sigmoid(head[..., 0:2])
+    pwh = head[..., 2:4]
+    pobj = torch.sigmoid(head[..., 4])
+    plog = torch.log_softmax(head[..., 5:], dim=-1)
+    coord = torch.sum(obj_mask[..., None] * ((pxy - targets[..., 0:2]) ** 2
+                                             + (pwh - targets[..., 2:4]) ** 2))
+    obj_l = torch.sum(obj_mask * (pobj - 1.0) ** 2)
+    noobj_l = torch.sum(noobj_mask * pobj**2)
+    cls_l = -torch.sum(obj_mask[..., None] * targets[..., 5:] * plog)
+    return (l_coord * coord + obj_l + l_noobj * noobj_l + cls_l) / head.shape[0]

@@ -1,0 +1,171 @@
+"""AdamW with the paper's training recipe (§IV-A: warmup, cosine decay to a
+floor, weight decay 1e-3), int8 optimizer moments and error-feedback int8
+gradient compression.
+
+Counterpart of ``repro/train/optimizer.py`` on trees of tensors (nested
+dicts, as :mod:`repro_torch.tree` walks them). The schedule and the bias
+corrections are computed on f32 tensors as JAX computes them: with Python
+floats they would be f64 and drift from the reference by ulps.
+
+Int8 moments keep the parameter's shape with one f32 scale per last-dim
+row; the second moment is stored in the sqrt domain, and the eps floor is
+raised to the quantization noise level (1e-5).
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, NamedTuple
+
+import torch
+
+from repro_torch import tree as tu
+
+_F32 = torch.float32
+
+
+def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to f32, as a 0-d tensor on ``like``'s device. A fill,
+    not a copy from the host: a host-to-device copy from pageable memory
+    would wait for the device's queue, and the step would stop the host."""
+    return torch.full((), x, dtype=_F32, device=like.device)
+
+
+# ------------------------------------------------------- int8 moment codec --
+
+
+def _q8_pack(x: torch.Tensor):
+    """f32 leaf -> (int8 payload, same shape; f32 scale per last-dim row)."""
+    if x.dim():
+        scale = x.abs().amax(dim=-1) / 127.0
+        q = torch.round(x / torch.clamp(scale[..., None], min=1e-12))
+    else:
+        scale = x.abs() / 127.0
+        q = torch.round(x / torch.clamp(scale, min=1e-12))
+    return q.to(torch.int8), scale
+
+
+def _q8_unpack(q: torch.Tensor, scale: torch.Tensor, dtype=_F32) -> torch.Tensor:
+    return q.to(dtype) * (scale[..., None] if q.dim() else scale)
+
+
+class Q8Leaf(NamedTuple):
+    q: torch.Tensor  # int8, same shape as the parameter
+    scale: torch.Tensor  # f32, param shape minus the last dim
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor  # int32 scalar
+    m: Any  # tree of f32 leaves or Q8Leaf
+    v: Any
+
+
+class AdamWConfig(NamedTuple):
+    lr_peak: float = 1e-4
+    lr_init: float = 1e-5
+    lr_final: float = 1e-6
+    warmup_steps: int = 500
+    total_steps: int = 10_000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 1e-3
+    grad_clip: float = 1.0
+    int8_moments: bool = False
+
+
+def _is_q8(x) -> bool:
+    return isinstance(x, Q8Leaf)
+
+
+def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup lr_init → lr_peak, then cosine decay → lr_final; f32."""
+    step = step.to(_F32)
+    f = lambda x: _f32(x, step)  # noqa: E731
+    warm = f(cfg.lr_init) + f(cfg.lr_peak - cfg.lr_init) * step / f(max(cfg.warmup_steps, 1))
+    t = torch.clamp((step - f(cfg.warmup_steps))
+                    / f(max(cfg.total_steps - cfg.warmup_steps, 1)), 0.0, 1.0)
+    decay = f(cfg.lr_final) + f(0.5 * (cfg.lr_peak - cfg.lr_final)) * (
+        f(1.0) + torch.cos(f(math.pi) * t))
+    return torch.where(step < f(cfg.warmup_steps), warm, decay)
+
+
+def init_state(params: Any, cfg: AdamWConfig) -> AdamWState:
+    def zero_like(p):
+        if cfg.int8_moments:
+            return Q8Leaf(
+                torch.zeros(p.shape, dtype=torch.int8, device=p.device),
+                torch.zeros(p.shape[:-1] if p.dim() else p.shape, dtype=_F32, device=p.device),
+            )
+        return torch.zeros(p.shape, dtype=_F32, device=p.device)
+
+    moments = tu.tree_map(zero_like, params)
+    step = torch.zeros((), dtype=torch.int32, device=tu.leaves(params)[0].device)
+    return AdamWState(step=step, m=moments, v=moments)
+
+
+def global_norm(tree: Any) -> torch.Tensor:
+    total = 0
+    for leaf in tu.leaves(tree):
+        total = total + torch.sum(torch.square(leaf.to(_F32)))
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def apply_updates(params: Any, grads: Any, state: AdamWState, cfg: AdamWConfig):
+    """One AdamW step with the global-norm grad clip. Returns (new_params,
+    new_state)."""
+    step = state.step + 1
+    lr = lr_schedule(cfg, step)
+    f = lambda x: _f32(x, lr)  # noqa: E731
+    gnorm = global_norm(grads)
+    clip = torch.minimum(f(1.0), f(cfg.grad_clip) / torch.clamp(gnorm, min=1e-12))
+    b1c = f(1.0) - torch.pow(f(cfg.b1), step.to(_F32))
+    b2c = f(1.0) - torch.pow(f(cfg.b2), step.to(_F32))
+    eps = max(cfg.eps, 1e-5) if cfg.int8_moments else cfg.eps
+    b1, nb1, b2, nb2 = f(cfg.b1), f(1 - cfg.b1), f(cfg.b2), f(1 - cfg.b2)
+    wd, eps_t = f(cfg.weight_decay), f(eps)
+
+    def upd(p, g, m_leaf, v_leaf):
+        g = g.to(_F32) * clip
+        if cfg.int8_moments:
+            m = _q8_unpack(m_leaf.q, m_leaf.scale)
+            v = torch.square(_q8_unpack(v_leaf.q, v_leaf.scale))
+        else:
+            m, v = m_leaf, v_leaf
+        m = b1 * m + nb1 * g
+        v = b2 * v + nb2 * g * g
+        mhat = m / b1c
+        vhat = v / b2c
+        delta = mhat / (torch.sqrt(vhat) + eps_t) + wd * p.to(_F32)
+        new_p = (p.to(_F32) - lr * delta).to(p.dtype)
+        if cfg.int8_moments:
+            return new_p, Q8Leaf(*_q8_pack(m)), Q8Leaf(*_q8_pack(torch.sqrt(v)))
+        return new_p, m, v
+
+    out = tu.tree_map(upd, params, grads, state.m, state.v, is_leaf=_is_q8)
+    pick = lambda i: tu.tree_map(lambda o: o[i], out, is_leaf=lambda x: type(x) is tuple)  # noqa: E731
+    return pick(0), AdamWState(step=step, m=pick(1), v=pick(2))
+
+
+# --------------------------------------- int8 error-feedback grad compress --
+
+
+class EFState(NamedTuple):
+    """Error-feedback residual for int8 gradient compression."""
+
+    residual: Any  # tree like grads, f32
+
+
+def ef_init(params: Any) -> EFState:
+    return EFState(residual=tu.tree_map(
+        lambda p: torch.zeros(p.shape, dtype=_F32, device=p.device), params))
+
+
+def compress_decompress(g: torch.Tensor, res: torch.Tensor):
+    """Simulated int8 all-reduce payload with error feedback: the value the
+    collective would move is int8; the quantization error is carried to
+    the next step. Returns (g_hat, new_res)."""
+    x = g.to(_F32) + res
+    q, scale = _q8_pack(x)
+    x_hat = _q8_unpack(q, scale)
+    return x_hat, x - x_hat

@@ -398,3 +398,53 @@ def test_engine_on_the_card_equals_solo_sessions(cuda, lengths, slots, monkeypat
             for name in ("boxes", "scores", "classes", "valid"):
                 assert np.array_equal(getattr(fr.out[k], name),
                                       getattr(step.detections, name)[0].cpu().numpy())
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_equals_cpu(cuda):
+    """One train step (loss and gradients, then AdamW) at ``demo_config``
+    on the card and on the CPU from the same host params and batch: spikes
+    equal, loss within 1e-5 relative, each gradient leaf within
+    1e-4·max|g| + 1e-7, the new tdBN state and the updated parameters within
+    1e-6 × the leaf's max (parameters where the clipped gradient |ĝ| ≥ 1e-6;
+    within 2·lr elsewhere, as in ``tests/test_torch_train.py``). cuDNN's
+    backward convs sum in another order (and not deterministically), so
+    nothing is compared bit for bit."""
+    from repro_torch import tree as tu
+    from repro_torch.data import synthetic_detection as sdata
+    from repro_torch.eval import harness
+    from repro_torch.train import optimizer as opt
+
+    cfg = harness.demo_config()
+    params, bn = sy.init_params(cfg, seed=0, device="cpu")
+    batch = next(sdata.batches(2, hw=cfg.input_hw, steps=1, grid_div=harness.grid_div(cfg)))
+    ocfg = harness.train_config(1)
+    out = {}
+    for dev in (torch.device("cpu"), cuda):
+        p = tu.tree_map(lambda t: t.to(dev), params)
+        b = tu.tree_map(lambda t: t.to(dev), bn)
+        with sy._no_tf32():
+            loss, grads, new_bn, aux = harness.loss_and_grads(
+                cfg, p, b, torch.from_numpy(batch["image"]).to(dev),
+                torch.from_numpy(batch["target"]).to(dev))
+            new_p, _ = opt.apply_updates(p, grads, opt.init_state(p, ocfg), ocfg)
+        out[dev.type] = tu.tree_map(lambda t: t.detach().cpu(),
+                                    (loss, grads, new_bn, new_p, aux["spikes"]))
+    (l0, g0, bn0, p0, s0), (l1, g1, bn1, p1, s1) = out["cpu"], out["cuda"]
+    for k in s0:
+        assert torch.equal(s0[k], s1[k]), f"{int((s0[k] != s1[k]).sum())} spikes flip at {k}"
+    assert abs(float(l1 - l0)) <= 1e-5 * abs(float(l0))
+    gnorm = float(torch.sqrt(sum((g.double() ** 2).sum() for g in tu.leaves(g0))))
+    clip = min(1.0, ocfg.grad_clip / gnorm)
+    lr = float(opt.lr_schedule(ocfg, torch.tensor(1, dtype=torch.int32)))
+    for a, b_, pa, pb in zip(tu.leaves(g0), tu.leaves(g1), tu.leaves(p0), tu.leaves(p1)):
+        assert float((a - b_).abs().max()) <= 1e-4 * float(a.abs().max()) + 1e-7
+        scale = 1e-6 * float(pa.abs().max())
+        tol = torch.where(a.abs() * clip >= 1e-6, scale, 2 * lr + scale)
+        assert bool(((pa - pb).abs() <= tol).all())
+    for name, st in bn0.items():
+        mscale = max(float(st["mean"].abs().max()), float(st["var"].sqrt().max()))
+        assert float((bn1[name]["mean"] - st["mean"]).abs().max()) <= 1e-6 * mscale
+        assert float((bn1[name]["var"] - st["var"]).abs().max()) <= \
+            1e-6 * float(st["var"].abs().max())
+        assert bn1[name]["count"].dtype == torch.int32

@@ -189,12 +189,21 @@ def test_session_reset_one_stream(port_inputs):
 
 @pytest.mark.parametrize("mode", ["ann", "qnn", "bnn"])
 def test_unported_paths_raise(port_inputs, mode):
+    """The ann/qnn/bnn modes run on the dense executor; the compressed
+    executors take binary spikes only and refuse them with the JAX
+    package's ValueError."""
     p, b, a, frames = port_inputs
-    det = sy.compile_detector(
-        dataclasses.replace(_port_config(), mode=mode), p, b, device="cpu"
-    )
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg = dataclasses.replace(_port_config(), mode=mode)
+    det = sy.compile_detector(cfg, p, b, device="cpu")
+    with pytest.raises(ValueError, match="requires mode='snn'"):
         det.detect(frames[0])
+    with pytest.raises(ValueError, match="requires mode='snn'"):
+        jsy.forward({}, {}, frames[0], cfg, plan=object())
+    dense = sy.compile_detector(dataclasses.replace(cfg, conv_exec="dense"), p, b,
+                                device="cpu")
+    _, head = dense.detect(frames[0])
+    assert head.shape[1:] == (*cfg.grid_hw, cfg.num_anchors, 5 + cfg.num_classes)
+    assert torch.isfinite(head).all()
 
 
 def test_unknown_executor_refused(port_inputs):
@@ -219,7 +228,10 @@ def test_import_leaves_jax_out():
         "repro_torch.kernels.bitmask_matmul, repro_torch.benchmarks.kernel_bench, "
         "repro_torch.benchmarks.e2e_detector, repro_torch.benchmarks.kernel_phases, "
         "repro_torch.serve.engine, repro_torch.benchmarks.serve_bench, "
-        "repro_torch.launch.serve\n"
+        "repro_torch.launch.serve, repro_torch.tree, repro_torch.train.optimizer, "
+        "repro_torch.train.ft, repro_torch.data.synthetic_detection, "
+        "repro_torch.data.detection_datasets, repro_torch.eval.detection_map, "
+        "repro_torch.launch.train_detector\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad); sys.exit(1 if bad else 0)"
