@@ -92,6 +92,26 @@ i. Three train steps of ``CONFIG`` at batch 2 under ``ft.Supervisor`` and a
    training CLI (``python -m repro_torch.launch.train_detector --steps 4
    --eval-images 4``) exits 0.
 
+The paper's pipeline (``repro_torch.eval.harness.run_pipeline``), the fused
+kernel on its quantized evaluations:
+
+j. ``run_pipeline(CONFIG, conv_exec="pallas")`` at 576×1024 with its steps
+   and images cut to the time limit (3 float steps and 2 QAT steps at batch
+   2, 8 eval images; the mAP is then not meaningful): no kernel in the
+   train steps or the float evaluations, 27 fused launches per ``detect()``
+   of the qat (mixed (1, 3)) and uniform T=3 evaluations, the uniform
+   evaluation's real layer inputs (conv_block at t_in = 3) bit-equal
+   through kernel and plain version; both quantized evaluations'
+   reports identical to the dense executor's on the same weights, heads
+   bit-equal, ``valid`` and ``classes`` equal; every weight pruning zeroed
+   still 0 after QAT; the accumulator report (max |acc|, within 16 bits);
+   each stage's seconds and each evaluation's images/s, per executor. Then
+   ``python -m repro_torch.launch.serve --arch snn-det --eval-map
+   --checkpoint <the QAT checkpoint> --requests 8`` prints its
+   BIT-IDENTICAL harness parity line through the kernel executor and exits
+   0, and ``python -m repro_torch.benchmarks.run --fast`` completes every
+   suite, each in a subprocess on the card.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error and times.
 """
@@ -125,6 +145,9 @@ E2E_REPS = 100  # timed detect() calls per executor at 576x1024 (~10 s in all)
 ENGINE_LENGTHS = (1, 4, 2, 5, 3, 1, 2, 6, 1, 3)  # frames per stream, the join/leave run
 LOAD_STREAMS, LOAD_FRAMES = (8, 64), 4
 TRAIN_STEPS, TRAIN_BATCH = 3, 2  # phase i: full-width train steps under the Supervisor
+# phase j: the paper's pipeline at full width, cut from 3500 + 600 steps at
+# batch 6 on 48 images (eval_map's demonstration scale) to the time limit
+PIPE_STEPS, PIPE_FINETUNE, PIPE_BATCH, PIPE_IMAGES = 3, 2, 2, 8
 
 
 def card() -> dict:
@@ -1026,6 +1049,236 @@ def phase_train(dev, tag) -> dict:
     return {"train": train, "parity": parity, "served": served, "cli_s": cli_s}
 
 
+def phase_pipeline(dev, tag) -> dict:
+    """(j) The paper's pipeline, ``harness.run_pipeline(CONFIG,
+    conv_exec="pallas")``, at full width (576×1024, block 18×32, T=(1,3),
+    FXP8), its steps and images cut to the run's time limit (its mAP then
+    means nothing): float train, prune 0.8, QAT under the mask, the four
+    evaluations (trained and pruned on the dense executor in f32, qat and
+    uniform_t3 through the fused kernel), driven with the launch counts set
+    to 0 just before it and read just after. Then: each quantized
+    evaluation's 27 fused launches per ``detect()``; the uniform T=3
+    evaluation's real layer inputs (conv_block at t_in = 3) replayed through
+    the kernel and its plain version; the qat and uniform_t3 weights
+    re-evaluated on the dense executor, reports identical and heads
+    bit-equal; the pruned support exactly 0 after QAT; the accumulator
+    report; every stage's time and each evaluation's images/s; the serve
+    CLI's ``--eval-map --checkpoint`` gate and the benchmark runner
+    (``run --fast``), each in a subprocess on the card."""
+    import math
+    import tempfile
+
+    from repro_torch import backend
+    from repro_torch import tree as tu
+    from repro_torch.configs.snn_det import CONFIG
+    from repro_torch.core import pruning
+    from repro_torch.data import synthetic_detection as sd
+    from repro_torch.eval import harness
+    from repro_torch.eval import sharded as se
+    from repro_torch.kernels import fused_pipeline as fp
+    from repro_torch.models import snn_yolo as sy
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
+    ckpt_dir = os.path.join(root, "ckpt")
+    cfg = CONFIG
+    rows, captured = [], []
+    eval_tags = iter(["trained", "pruned", "qat", "uniform_t3", "qat_dense",
+                      "uniform_t3_dense"])
+    real = {"train_steps": harness.train_steps, "evaluate_detector": harness.evaluate_detector,
+            "prune_tree": pruning.prune_tree, "mask_tree": pruning.mask_tree,
+            "fused_pipeline": fp.fused_pipeline}
+    train_tags = iter(["train", "qat_train"])
+
+    def timed(stage, fn, *a, **k):
+        torch.cuda.synchronize()
+        before = backend.launches[fp.KERNEL]
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        row = {"stage": stage, "s": time.perf_counter() - t0,
+               "fused_launches": backend.launches[fp.KERNEL] - before}
+        rows.append(row)
+        return out, row
+
+    def train_steps(c, **k):
+        tag_ = next(train_tags)
+        out, row = timed(tag_, real["train_steps"], c, **k)
+        row.update(steps=k["steps"], batch=k["batch"], ms_per_step=row["s"] * 1e3 / k["steps"],
+                   losses=out[3])
+        print(json.dumps({"phase": "pipeline_stage", **row, **tag}), flush=True)
+        return out
+
+    def evaluate_detector(det, **k):
+        tag_ = next(eval_tags)
+        capture = tag_ == "uniform_t3"
+        if capture:
+            fp.fused_pipeline = capture_fused
+        try:
+            out, row = timed(tag_, real["evaluate_detector"], det, **k)
+        finally:
+            fp.fused_pipeline = real["fused_pipeline"]
+        detects = math.ceil(out["n_images"] / 8)  # evaluate_detector's batch
+        row.update(executor=det.cfg.conv_exec, weight_bits=det.cfg.weight_bits,
+                   mixed_time=det.cfg.mixed_time, images=out["n_images"],
+                   images_per_s=out["n_images"] / row["s"],
+                   fused_launches_per_detect=row["fused_launches"] / detects,
+                   map=out["map"], n_pred=out["n_pred"])
+        print(json.dumps({"phase": "pipeline_stage", **row, **tag}), flush=True)
+        return out
+
+    def prune_tree(params, rate):
+        pruning.prune_tree = real["prune_tree"]  # it recurses: time the outer call only
+        try:
+            out, row = timed("prune", real["prune_tree"], params, rate)
+        finally:
+            pruning.prune_tree = prune_tree
+        print(json.dumps({"phase": "pipeline_stage", **row, **tag}), flush=True)
+        return out
+
+    def mask_tree(params, rate):
+        out, row = timed("mask", real["mask_tree"], params, rate)
+        print(json.dumps({"phase": "pipeline_stage", **row, **tag}), flush=True)
+        return out
+
+    def capture_fused(*args, **kwargs):
+        out = real["fused_pipeline"](*args, **kwargs)
+        if len(captured) < 27:
+            x, w_, taps, affine, v0 = args
+            captured.append(dict(x=x.clone(), w=w_, taps=taps, affine=affine,
+                                 v0=None if v0 is None else v0.clone(), **kwargs))
+        return out
+
+    harness.train_steps, harness.evaluate_detector = train_steps, evaluate_detector
+    pruning.prune_tree, pruning.mask_tree = prune_tree, mask_tree
+    try:
+        torch.cuda.synchronize()
+        backend.reset_launches()
+        t0 = time.perf_counter()
+        rep = harness.run_pipeline(cfg=cfg, conv_exec="pallas", steps=PIPE_STEPS,
+                                   finetune_steps=PIPE_FINETUNE, batch=PIPE_BATCH,
+                                   eval_images=PIPE_IMAGES, ckpt_dir=ckpt_dir, device=dev)
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+        launches = dict(backend.launches)
+
+        # 2. the same weights on the dense executor: reports and heads equal
+        det = rep.final_det
+        dets = {"qat": det, "uniform_t3": harness.compile_eval_detector(
+            dataclasses.replace(det.cfg, mixed_time=False), det.params, det.bn_state,
+            device=dev)}
+        images, _ = sd.eval_set(PIPE_IMAGES, hw=cfg.input_hw, grid_div=harness.grid_div(cfg),
+                                num_anchors=cfg.num_anchors, num_classes=cfg.num_classes)
+        frames = torch.from_numpy(images).to(dev)
+        equal = {}
+        for name, kdet in dets.items():
+            dense = harness.compile_eval_detector(
+                dataclasses.replace(kdet.cfg, conv_exec="dense"), kdet.params,
+                kdet.bn_state, device=dev)
+            want = harness.evaluate_detector(dense, n_images=PIPE_IMAGES)
+            got = rep.stages["qat"] if name == "qat" else rep.schedules["uniform_t3"]
+            if not se.reports_identical(got, want):
+                raise AssertionError(f"{name}: the kernel's report differs from the dense "
+                                     f"executor's: {got} vs {want}")
+            with sy._no_tf32():
+                kd, kh = kdet.detect(frames)
+                dd_, dh = dense.detect(frames)
+            if not bits_equal(kh, dh):
+                raise AssertionError(f"{name}: kernel head != dense head: max |Δ| "
+                                     f"{float((kh - dh).abs().max())}")
+            for f in ("valid", "classes"):
+                if not torch.equal(getattr(kd, f), getattr(dd_, f)):
+                    raise AssertionError(f"{name}: detections.{f} differ from dense")
+            equal[name] = {"report_identical": True, "head_bit_equal": True,
+                           "valid": int(kd.valid.sum())}
+    finally:
+        harness.train_steps, harness.evaluate_detector = (real["train_steps"],
+                                                          real["evaluate_detector"])
+        pruning.prune_tree, pruning.mask_tree = real["prune_tree"], real["mask_tree"]
+        fp.fused_pipeline = real["fused_pipeline"]
+    by_stage = {r["stage"]: r for r in rows}
+    per_detect = {k: by_stage[k]["fused_launches_per_detect"] for k in ("qat", "uniform_t3")}
+    if per_detect != {"qat": 27, "uniform_t3": 27}:
+        raise AssertionError(f"fused launches per detect() {per_detect}; want 27 each")
+    if launches != {fp.KERNEL: 2 * 27 * math.ceil(PIPE_IMAGES / 8)}:
+        raise AssertionError(f"run_pipeline launched {launches}")
+    if any(by_stage[k]["fused_launches"] for k in ("train", "qat_train", "trained", "pruned")):
+        raise AssertionError(f"a float or training stage launched the kernel: {rows}")
+
+    # 1b. the uniform T=3 evaluation's layers: kernel against plain version
+    if len(captured) != 27 or captured[1]["x"].shape[0] != 3:
+        raise AssertionError(f"uniform T=3: captured {len(captured)} layers, conv_block "
+                             f"t_in {captured[1]['x'].shape[0] if len(captured) > 1 else None}")
+    uniform_ms, uniform_plain_ms, max_err = 0.0, 0.0, 0.0
+    for args in captured:
+        a = dict(args)
+        x, w_, taps, affine, v0 = (a.pop(k) for k in ("x", "w", "taps", "affine", "v0"))
+        spk, mem = fp.fused_pipeline(x, w_, taps, affine, v0, **a)
+        rspk, rmem = fp.fused_pipeline_reference(x, w_, taps, affine, v0, **a)
+        torch.cuda.synchronize()
+        max_err = max(max_err, float((mem - rmem).abs().max()))
+        if not (bits_equal(spk, rspk) and bits_equal(mem, rmem)):
+            raise AssertionError(f"uniform T=3: kernel != plain version at layer input "
+                                 f"{tuple(x.shape)}")
+        uniform_ms += device_ms(lambda: fp.fused_pipeline(x, w_, taps, affine, v0, **a))[0]
+        uniform_plain_ms += elapsed_ms(
+            lambda: fp.fused_pipeline_reference(x, w_, taps, affine, v0, **a), reps=1)
+    del captured[:]
+
+    # 3. the pruned support: every entry pruning zeroed is still exactly 0
+    _, fparams, _, _ = harness.restore_detector_checkpoint(ckpt_dir, step=PIPE_STEPS,
+                                                           device=dev)
+    mask = pruning.mask_tree(fparams, 0.8)
+    leaked = sum(int((w[m == 0] != 0).sum())
+                 for m, w in zip(tu.leaves(mask), tu.leaves(det.params)))
+    kept = sum(int(m.sum()) for m in tu.leaves(mask))
+    if leaked:
+        raise AssertionError(f"{leaked} pruned weights are nonzero after QAT")
+    acc = rep.accumulator
+    out = {"config": "CONFIG", "input_hw": list(cfg.input_hw), "steps": PIPE_STEPS,
+           "finetune_steps": PIPE_FINETUNE, "batch": PIPE_BATCH, "eval_images": PIPE_IMAGES,
+           "note": "steps and images cut to the time limit: the mAP is not meaningful",
+           "pipeline_s": pipe_s, "launches": launches, "fused_launches_per_detect": per_detect,
+           "summary": rep.summary(), "kernel_vs_dense": equal,
+           "pruned_support_preserved": True, "kept_weights": kept,
+           "accumulator_max_abs": acc["max_abs"], "accumulator_within_16b": acc["within_16b"],
+           "uniform_t3_kernel_ms": uniform_ms, "uniform_t3_plain_ms": uniform_plain_ms,
+           "uniform_t3_max_abs_err": max_err, "stages": rows}
+    print(json.dumps({"phase": "pipeline", **out, **tag}), flush=True)
+    del rep, det, dets, frames
+    torch.cuda.empty_cache()
+
+    # 6, 7. the serve CLI's gate and the benchmark runner, on the card
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = {**os.environ, "PYTHONPATH": src}
+    for name, argv in (
+        ("serve_eval_map", ["-m", "repro_torch.launch.serve", "--arch", "snn-det",
+                            "--eval-map", "--checkpoint", ckpt_dir, "--requests", "8"]),
+        ("benchmarks_run", ["-m", "repro_torch.benchmarks.run", "--fast", "--json",
+                            os.path.join(root, "run.json")]),
+    ):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, *argv], env=env, cwd=root, capture_output=True,
+                           text=True, timeout=300 if name == "serve_eval_map" else 600)
+        lines = r.stdout.splitlines()
+        out[name] = {"rc": r.returncode, "seconds": time.perf_counter() - t0,
+                     "tail": lines[-8:] if name == "benchmarks_run" else
+                     [ln for ln in lines if "parity" in ln or "served" in ln or
+                      "restored" in ln]}
+        print(json.dumps({"phase": name, **out[name], **tag}), flush=True)
+        if r.returncode != 0:
+            raise AssertionError(f"{name} exited {r.returncode}: {r.stdout[-3000:]}"
+                                 f"{r.stderr[-3000:]}")
+    if not any("BIT-IDENTICAL" in ln for ln in out["serve_eval_map"]["tail"]) or not any(
+            "conv_exec pallas" in ln for ln in out["serve_eval_map"]["tail"]):
+        raise AssertionError(f"serve --eval-map: no BIT-IDENTICAL parity line through the "
+                             f"kernel executor: {out['serve_eval_map']['tail']}")
+    done = [ln for ln in out["benchmarks_run"]["tail"] if "benchmark suites completed" in ln]
+    if not done or not done[0].startswith("all "):
+        raise AssertionError(f"run --fast did not complete: {out['benchmarks_run']['tail']}")
+    shutil.rmtree(root)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card",
@@ -1270,6 +1523,12 @@ def main() -> int:
     trained = phase_train(dev, tag)
     print(json.dumps({"phase": "elapsed", "after": "i", "s": time.perf_counter() - t_start}),
           flush=True)
+
+    # ------------------------------------------------ j. the paper's pipeline
+    torch.cuda.empty_cache()
+    pipeline = phase_pipeline(dev, tag)
+    print(json.dumps({"phase": "elapsed", "after": "j", "s": time.perf_counter() - t_start}),
+          flush=True)
     train_launches = trained["train"]["kernel_launches"]
     bl, el = benches["bench_launches"], benches["e2e_launches"]
     lif0, mm0 = lif["rows"][0], mm["rows"][0]  # kernel_bench's own shapes
@@ -1308,6 +1567,10 @@ def main() -> int:
                         for ex, r in benches["e2e"]["executors"].items()},
         "launches_train_steps": train_launches.get("fused_pipeline", 0),
         "launches_serving_trained_weights": trained["served"]["launches"],
+        "launches_pipeline": pipeline["launches"].get("fused_pipeline", 0),
+        "launches_pipeline_per_detect": pipeline["fused_launches_per_detect"],
+        "pipeline_uniform_t3_ms": pipeline["uniform_t3_kernel_ms"],
+        "pipeline_uniform_t3_plain_ms": pipeline["uniform_t3_plain_ms"],
     }, {
         "name": "gated_one_to_all",
         "route": "cuda",
@@ -1337,6 +1600,7 @@ def main() -> int:
         "ms_12_shapes": sum(r["ms"] for r in gated["rows"][:12]),
         "launches_kernel_bench": bl["gated_one_to_all"],
         "launches_train_steps": train_launches.get("gated_one_to_all", 0),
+        "launches_pipeline": pipeline["launches"].get("gated_one_to_all", 0),
     }, {
         "name": "fused_lif",
         "route": "cuda",
@@ -1356,6 +1620,7 @@ def main() -> int:
         "shapes": [{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
                    for r in lif["rows"]],
         "launches_train_steps": train_launches.get("spike_lif", 0),
+        "launches_pipeline": pipeline["launches"].get("spike_lif", 0),
     }, {
         "name": "bitmask_matmul",
         "route": "cuda",
@@ -1378,6 +1643,7 @@ def main() -> int:
         "ptxas": ptxas.get("bitmask_matmul", []),
         "smem_bytes": sorted({r["plan"]["smem_bytes"] for r in mm["rows"]}),
         "launches_train_steps": train_launches.get("bitmask_matmul", 0),
+        "launches_pipeline": pipeline["launches"].get("bitmask_matmul", 0),
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,6 +1,24 @@
 """Train, checkpoint and evaluate the detector: counterpart of
 ``repro/eval/harness.py``.
 
+The paper's Table I walks the detector through a compression pipeline
+(train float → fine-grained prune 80% → FXP8 quantize → fine-tune), and
+Fig 15 shows the mixed (1, 3) time-step schedule costs almost no mAP
+against uniform T=3. :func:`run_pipeline` reproduces both at a trainable
+demo scale on the synthetic IVS-3cls-like split:
+
+  stage "trained"  float weights, fresh from ``train_steps``
+  stage "pruned"   80% magnitude pruning on 3×3 kernels, no retraining
+  stage "qat"      FXP8 fake-quant + mask-preserving fine-tune
+  schedules        the final weights evaluated mixed (1, 3) vs uniform T=3
+
+On a static frame the two schedules are mathematically identical through
+the first two macro layers (convolving one step and broadcasting equals
+convolving three identical steps), so the mAP delta is exactly 0 while the
+op count drops; it is measured all the same. Every run also reports the
+worst-case conv accumulator against the ASIC's 16-bit claim
+(:func:`accumulator_report`).
+
 * :func:`demo_config` — the trainable-size detector (96×160, thinned
   channels, 3 CSP stages, grid /16) the training launcher and the JAX
   package's harness share.
@@ -10,8 +28,10 @@
   step of it and :func:`loss_and_grads` its differentiable half. TF32 stays
   off throughout.
 * :func:`evaluate_detector` — mAP@IoU of a compiled detector on an eval
-  split (single host; the sharded evaluator is ROADMAP queue 1 item 5, as
-  is the train → prune → QAT → eval ``run_pipeline``).
+  split, TF32 off (single host; the sharded evaluator is ROADMAP queue 1
+  item 5).
+* :func:`run_pipeline` — train → prune → QAT → evaluate, returning an
+  :class:`EvalReport`; :func:`accumulator_report` — the 16-bit claim.
 * :func:`save_detector_checkpoint` / :func:`restore_detector_checkpoint` —
   ``{"params", "bn"}`` plus the ``detector_config.json`` sidecar that makes
   a checkpoint self-describing, in the layout both packages read.
@@ -21,6 +41,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import time
+from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
@@ -29,6 +51,7 @@ import torch
 from repro_torch import interop
 from repro_torch import tree as tu
 from repro_torch.configs.snn_det import CONFIG
+from repro_torch.core import pruning, quant
 from repro_torch.data import detection_datasets as dd
 from repro_torch.eval import detection_map as dm
 from repro_torch.models import snn_yolo as sy
@@ -68,13 +91,31 @@ def grid_div(cfg: sy.SNNDetConfig) -> int:
 # ---------------------------------------------------------------- evaluate --
 
 
+def accumulator_report(det) -> dict:
+    """Worst-case conv accumulator magnitude per layer (binary-spike
+    inputs: max over output channels of Σ|w_q|) vs the 16-bit claim."""
+    plan = det.plan
+    if plan is None:  # float weights: no FXP accumulator to bound
+        return {"acc_bits": quant.ACC_BITS, "layers": {}, "max_abs": 0,
+                "within_16b": True}
+    per_layer = {name: quant.conv_acc_worst_case(lp.w_q) for name, lp in plan.layers.items()}
+    worst = max(per_layer.values())
+    return {
+        "acc_bits": quant.ACC_BITS,
+        "layers": per_layer,
+        "max_abs": int(worst),
+        "within_16b": bool(worst < 2 ** (quant.ACC_BITS - 1)),
+    }
+
+
 def evaluate_detector(det, *, n_images: int = 32, split: str = "val", batch: int = 8,
                       iou_threshold: float = 0.5, sharded=None,
                       source: Optional[dd.DetectionSource] = None) -> dict:
     """mAP@iou of a :class:`~repro_torch.serve.detector.CompiledDetector` on
     an eval split of ``source`` (the synthetic generator by default). The
     handle's own postprocess settings are used: build it with
-    :func:`compile_eval_detector` for evaluation thresholds."""
+    :func:`compile_eval_detector` for evaluation thresholds. The forward runs
+    with TF32 off, so float weights score on the card as on the CPU."""
     if sharded is not None:
         raise NotImplementedError(
             "sharded evaluation is not ported yet (ROADMAP.md queue 1 item 5); "
@@ -90,9 +131,11 @@ def evaluate_detector(det, *, n_images: int = 32, split: str = "val", batch: int
         num_anchors=cfg.num_anchors, num_classes=cfg.num_classes,
     )
     preds = []
-    for i in range(0, n_images, batch):
-        dets, _ = det.detect(torch.from_numpy(images[i : i + batch]))
-        preds.extend(dm.detections_to_predictions(type(dets)(*(t.cpu().numpy() for t in dets))))
+    with sy._no_tf32():
+        for i in range(0, n_images, batch):
+            dets, _ = det.detect(torch.from_numpy(images[i : i + batch]))
+            preds.extend(dm.detections_to_predictions(
+                type(dets)(*(t.cpu().numpy() for t in dets))))
     report = dm.evaluate_detections(
         preds, gts, num_classes=cfg.num_classes, iou_threshold=iou_threshold
     )
@@ -231,3 +274,165 @@ def train_steps(cfg: sy.SNNDetConfig, *, steps: int, batch: int = 4, seed: int =
             if verbose and k % log_every == 0:
                 print(f"    step {k:4d} loss {losses[-1]:8.4f}")
     return params, bn, opt_state, losses
+
+
+# ---------------------------------------------------------------- pipeline --
+
+
+@dataclass
+class EvalReport:
+    """Pipeline output: per-stage mAP, schedule comparison, accumulator."""
+
+    stages: dict  # stage name -> evaluate_detections report
+    schedules: dict  # "mixed_1_3" / "uniform_t3" -> report
+    accumulator: dict
+    losses: dict  # stage -> loss curve
+    wall_s: float
+    # the final (qat-stage) compile_eval_detector handle, kept so callers
+    # can re-score the same weights without retraining
+    final_det: Optional[object] = None
+
+    @property
+    def map_by_stage(self) -> dict:
+        return {k: v["map"] for k, v in self.stages.items()}
+
+    @property
+    def schedule_delta(self) -> float:
+        """mAP(T=3) − mAP(mixed): Fig 15 says this stays small."""
+        return self.schedules["uniform_t3"]["map"] - self.schedules["mixed_1_3"]["map"]
+
+    def summary(self) -> dict:
+        return {
+            "map_by_stage": self.map_by_stage,
+            "per_class_ap_final": self.stages["qat"]["per_class_ap"],
+            "schedule_map": {k: v["map"] for k, v in self.schedules.items()},
+            "schedule_delta_map": self.schedule_delta,
+            "accumulator_max_abs": self.accumulator["max_abs"],
+            "accumulator_within_16b": self.accumulator["within_16b"],
+            "wall_s": self.wall_s,
+        }
+
+
+def run_pipeline(
+    cfg: Optional[sy.SNNDetConfig] = None,
+    *,
+    steps: int = 400,
+    finetune_steps: int = 80,
+    batch: int = 4,
+    eval_images: int = 32,
+    prune_rate: float = 0.8,
+    seed: int = 0,
+    conv_exec: str = "dense",
+    eval_shards: int = 1,
+    source: Optional[dd.DetectionSource] = None,
+    ckpt_dir: Optional[str] = None,
+    verbose: bool = True,
+    device=None,
+) -> EvalReport:
+    """The scaled-down Table I / Fig 15 reproduction on ``device`` (default:
+    the card), which trains and runs every evaluation.
+
+    Trains float, prunes, QAT-fine-tunes under the pruning mask, and
+    evaluates mAP@0.5 after each stage; then compares the mixed (1, 3)
+    schedule against uniform T=3 on the final weights. ``conv_exec``
+    selects the executor of the quantized evaluations (``"pallas"``: the
+    fused kernel). The executors agree exactly only under
+    ``use_block_conv=True``, since the compressed ones always use block-conv
+    borders, so a compressed ``conv_exec`` requires a block-conv config.
+
+    ``eval_shards > 1`` (the mesh-sharded evaluation) is ROADMAP queue 1
+    item 5 and raises. ``source`` swaps the dataset for training and
+    evaluation (synthetic by default). ``ckpt_dir`` commits a detector
+    checkpoint after the float stage (step ``steps``) and after QAT (step
+    ``steps + finetune_steps``), which ``launch/serve.py --checkpoint``
+    restores and serves.
+    """
+    t0 = time.time()
+    base = cfg if cfg is not None else demo_config()
+    if conv_exec != "dense" and not base.use_block_conv:
+        raise ValueError(
+            f"conv_exec={conv_exec!r} evaluates with block-conv border "
+            "semantics, but the float training stages would use plain SAME "
+            "conv (use_block_conv=False) — the stage deltas would mix "
+            "executor semantics with compression effects. Pass a config "
+            "with use_block_conv=True (demo_config's block_hw=(6, 10) "
+            "divides every feature map) or keep conv_exec='dense'"
+        )
+    if eval_shards > 1:
+        raise NotImplementedError(
+            "sharded evaluation (eval_shards > 1) is not ported yet "
+            "(ROADMAP.md queue 1 item 5); pass eval_shards=1"
+        )
+    float_cfg = dataclasses.replace(base, weight_bits=0, conv_exec="dense")
+    quant_cfg = dataclasses.replace(base, weight_bits=8, conv_exec=conv_exec)
+    stages: dict = {}
+    losses: dict = {}
+    source = source or dd.SyntheticSource()
+
+    def _eval(tag, c, p, b):
+        det = compile_eval_detector(c, p, b, device=device)
+        stages[tag] = evaluate_detector(det, n_images=eval_images, source=source)
+        if verbose:
+            aps = ", ".join(f"{a:.3f}" for a in stages[tag]["per_class_ap"])
+            print(f"  [{tag}] mAP@0.5 {stages[tag]['map']:.3f}  (per-class {aps})")
+        return det
+
+    if verbose:
+        print(f"  train {steps} steps (float, mixed (1,{base.full_t}), "
+              f"dataset {source.name})")
+    params, bn, _, losses["train"] = train_steps(
+        float_cfg, steps=steps, batch=batch, seed=seed, verbose=verbose,
+        source=source, device=device,
+    )
+    if ckpt_dir:
+        save_detector_checkpoint(ckpt_dir, steps, params, bn, float_cfg)
+        if verbose:
+            print(f"  saved float checkpoint (step {steps}) to {ckpt_dir}")
+    _eval("trained", float_cfg, params, bn)
+
+    pruned = pruning.prune_tree(params, prune_rate)
+    _eval("pruned", float_cfg, pruned, bn)
+
+    # QAT fine-tune: STE fake-quant weights, gradients masked to the
+    # pruned support (the paper fine-tunes 5 epochs after prune+quantize)
+    mask = pruning.mask_tree(params, prune_rate)
+    qat_train_cfg = dataclasses.replace(base, weight_bits=8, conv_exec="dense")
+    if verbose:
+        print(f"  QAT fine-tune {finetune_steps} steps (FXP8, masked grads)")
+    qp, qbn, _, losses["qat"] = train_steps(
+        qat_train_cfg, steps=finetune_steps, batch=batch, params=pruned, bn=bn,
+        grad_mask=mask, lr_peak=3e-4, start_index=steps * batch,
+        verbose=verbose, source=source,
+    )
+    if ckpt_dir:
+        save_detector_checkpoint(ckpt_dir, steps + finetune_steps, qp, qbn, quant_cfg)
+        if verbose:
+            print(f"  saved QAT checkpoint (step {steps + finetune_steps}) to {ckpt_dir}")
+    det = _eval("qat", quant_cfg, qp, qbn)
+
+    # Fig 15: the same final weights under both time-step schedules
+    schedules = {
+        "mixed_1_3": stages["qat"],
+        "uniform_t3": evaluate_detector(
+            compile_eval_detector(dataclasses.replace(quant_cfg, mixed_time=False), qp, qbn,
+                                  device=device),
+            n_images=eval_images, source=source,
+        ),
+    }
+    report = EvalReport(
+        stages=stages,
+        schedules=schedules,
+        accumulator=accumulator_report(det),
+        losses=losses,
+        wall_s=time.time() - t0,
+        final_det=det,
+    )
+    if verbose:
+        s = report.summary()
+        print(f"  schedules: mixed {s['schedule_map']['mixed_1_3']:.3f} vs "
+              f"T=3 {s['schedule_map']['uniform_t3']:.3f} "
+              f"(delta {s['schedule_delta_map']:+.3f})")
+        print(f"  accumulator max |acc| {s['accumulator_max_abs']} "
+              f"(16b ok: {s['accumulator_within_16b']})  "
+              f"wall {s['wall_s']:.0f}s")
+    return report

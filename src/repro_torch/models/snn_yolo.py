@@ -330,35 +330,47 @@ class _MaxPool2x2(torch.autograd.Function):
     """2×2 max-pool of (T, N, H, W, C) whose gradient goes to the first
     maximum of each window in row-major order, where XLA's select-and-
     scatter sends it (``amax`` would split it among tied maxima, and binary
-    spikes tie all the time)."""
+    spikes tie all the time). An odd last row or column is dropped and gets
+    no gradient, as under ``reduce_window``'s VALID padding."""
 
     @staticmethod
     def forward(ctx, x):
         t, n, h, w, c = x.shape
-        win = x.reshape(t, n, h // 2, 2, w // 2, 2, c).permute(0, 1, 2, 4, 6, 3, 5)
+        win = _even(x).reshape(t, n, h // 2, 2, w // 2, 2, c).permute(0, 1, 2, 4, 6, 3, 5)
         win = win.reshape(t, n, h // 2, w // 2, c, 4)
         idx = win.argmax(dim=-1, keepdim=True)
         ctx.save_for_backward(idx)
+        ctx.hw = (h, w)
         return win.gather(-1, idx).squeeze(-1)
 
     @staticmethod
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         t, n, h2, w2, c, _ = idx.shape
+        h, w = ctx.hw
         gw = torch.zeros((t, n, h2, w2, c, 4), dtype=g.dtype, device=g.device)
         gw.scatter_(-1, idx, g.unsqueeze(-1))
         gw = gw.reshape(t, n, h2, w2, c, 2, 2).permute(0, 1, 2, 5, 3, 6, 4)
-        return gw.reshape(t, n, 2 * h2, 2 * w2, c)
+        gw = gw.reshape(t, n, 2 * h2, 2 * w2, c)
+        return torch.nn.functional.pad(gw, (0, 0, 0, w - 2 * w2, 0, h - 2 * h2))
+
+
+def _even(x_t):
+    """(T, N, H, W, C) cropped to even H and W: the 2×2 windows of a VALID
+    pool, which drops an odd last row or column."""
+    h, w = x_t.shape[2], x_t.shape[3]
+    return x_t[:, :, : h - h % 2, : w - w % 2]
 
 
 def _maxpool_t(x_t):
     """2×2 spike max-pool == OR gate (the paper's max-pooling module).
     Works on any dtype: uint8 spikes from the kernel, f32 from the oracle;
-    differentiable as JAX's ``reduce_window`` max is."""
+    differentiable as JAX's ``reduce_window`` max is, whose VALID windows
+    drop an odd last row or column."""
     if x_t.requires_grad and torch.is_grad_enabled():
         return _MaxPool2x2.apply(x_t)
     t, n, h, w, c = x_t.shape
-    return x_t.reshape(t, n, h // 2, 2, w // 2, 2, c).amax(dim=(3, 5))
+    return _even(x_t).reshape(t, n, h // 2, 2, w // 2, 2, c).amax(dim=(3, 5))
 
 
 def _rate_gated_pool_t(s_t):

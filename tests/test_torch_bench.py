@@ -206,7 +206,8 @@ def test_e2e_detector_main_writes_only_where_asked(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("module", ["kernel_bench", "e2e_detector", "kernel_phases",
-                                    "serve_bench", "launch.serve"])
+                                    "serve_bench", "launch.serve", "eval_map",
+                                    "table1_ablation", "fig5_miout", "run"])
 def test_benchmarks_default_to_the_card(module, tmp_path):
     """Without --device a benchmark (or the serve CLI) runs on the card, and
     with no card it raises instead of falling back to the CPU."""

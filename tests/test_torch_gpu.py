@@ -448,3 +448,30 @@ def test_train_step_on_the_card_equals_cpu(cuda):
         assert float((bn1[name]["var"] - st["var"]).abs().max()) <= \
             1e-6 * float(st["var"].abs().max())
         assert bn1[name]["count"].dtype == torch.int32
+
+
+@pytest.mark.gpu
+def test_run_pipeline_on_the_card_kernel_equals_dense(cuda, tmp_path):
+    """``run_pipeline(conv_exec="pallas")`` on the card at ``demo_config``
+    with block conv: one fused launch per layer and ``detect()`` in the two
+    quantized evaluations and none elsewhere, and the ``"qat"`` and
+    ``"uniform_t3"`` reports identical to the dense executor's on the same
+    weights."""
+    from repro_torch import backend
+    from repro_torch.eval import harness
+    from repro_torch.eval import sharded as se
+
+    cfg = dataclasses.replace(harness.demo_config(), use_block_conv=True)
+    backend.reset_launches()
+    rep = harness.run_pipeline(cfg, steps=20, finetune_steps=5, batch=2, eval_images=8,
+                               conv_exec="pallas", device=cuda, verbose=False)
+    torch.cuda.synchronize()
+    det = rep.final_det
+    n_fused = len(det.plan.layers) - 1  # every layer but the head
+    assert dict(backend.launches) == {fp.KERNEL: 2 * n_fused}
+    for name, mixed in (("qat", True), ("uniform_t3", False)):
+        dense = harness.compile_eval_detector(
+            dataclasses.replace(det.cfg, conv_exec="dense", mixed_time=mixed), det.params,
+            det.bn_state, device=cuda)
+        got = rep.stages["qat"] if mixed else rep.schedules["uniform_t3"]
+        assert se.reports_identical(got, harness.evaluate_detector(dense, n_images=8)), name

@@ -231,7 +231,19 @@ def test_import_leaves_jax_out():
         "repro_torch.launch.serve, repro_torch.tree, repro_torch.train.optimizer, "
         "repro_torch.train.ft, repro_torch.data.synthetic_detection, "
         "repro_torch.data.detection_datasets, repro_torch.eval.detection_map, "
-        "repro_torch.launch.train_detector\n"
+        "repro_torch.launch.train_detector, repro_torch.core.quant, repro_torch.core.miout, "
+        "repro_torch.eval.sharded, repro_torch.benchmarks.eval_map, "
+        "repro_torch.benchmarks.table1_ablation, repro_torch.benchmarks.table2_models, "
+        "repro_torch.benchmarks.table3_hw, repro_torch.benchmarks.fig3_density, "
+        "repro_torch.benchmarks.fig5_miout, repro_torch.benchmarks.fig6_parallelism, "
+        "repro_torch.benchmarks.fig15_mixed_t, repro_torch.benchmarks.fig17_dram, "
+        "repro_torch.benchmarks.run\n"
+        "from repro_torch.core.quant import int8_conv_accumulate, acc_range_ok, "
+        "conv_acc_worst_case, ACC_BITS\n"
+        "from repro_torch.core.miout import miout, choose_schedule, schedule_ops, "
+        "repeat_conv_for_timesteps\n"
+        "from repro_torch.eval.sharded import reports_identical\n"
+        "from repro_torch.eval.harness import accumulator_report, EvalReport, run_pipeline\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
         "or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad); sys.exit(1 if bad else 0)"
