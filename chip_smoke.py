@@ -112,6 +112,29 @@ j. ``run_pipeline(CONFIG, conv_exec="pallas")`` at 576×1024 with its steps
    0, and ``python -m repro_torch.benchmarks.run --fast`` completes every
    suite, each in a subprocess on the card.
 
+ANN→SNN conversion (``repro_torch.convert``), the fused kernel serving
+converted detectors at T=128 and T=64 with unpruned weights:
+
+k. The committed ANN fixture (``tests/fixtures/ann_detector``, 96×160, 3 CSP
+   stages) converted at ``ConvertConfig()`` (T=128, 32 calibration images,
+   soft reset, rate encode, rate pool) on the card and on the CPU: λ, γ, β
+   and α compared, and the plans' int8 weights (a difference only at a
+   rounding half). 48 val images evaluated through the kernel and the
+   dense executor: reports identical, heads bit-equal, ``valid`` and
+   ``classes`` equal, 17 fused launches per ``detect()`` (the fixture's
+   fused layers); the first ``detect()``'s layers replayed bit for bit
+   against the plain version at T=128; the mAP@0.5 beside the JAX
+   package's 0.39. Then a seeded ANN-mode ``CONFIG`` (576×1024) exported
+   and loaded back, converted on the committed COCO fixture's 4 images at
+   T=64 (cut from 128), evaluated likewise (27 fused launches per
+   ``detect()``, spikes reaching stage4, each layer's plan and whether its
+   weights stay resident in shared memory). Then the CLIs in subprocesses:
+   ``launch.convert --conv-exec pallas``, the serve CLI's ``--eval-map``
+   gate on its checkpoint (BIT-IDENTICAL), ``eval_map --checkpoint`` on
+   the COCO fixture. Times: calibration, emit, head fit; images/s per
+   executor; the fused kernel's ms per ``detect()`` beside its bound; peak
+   memory.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error and times.
 """
@@ -148,6 +171,13 @@ TRAIN_STEPS, TRAIN_BATCH = 3, 2  # phase i: full-width train steps under the Sup
 # phase j: the paper's pipeline at full width, cut from 3500 + 600 steps at
 # batch 6 on 48 images (eval_map's demonstration scale) to the time limit
 PIPE_STEPS, PIPE_FINETUNE, PIPE_BATCH, PIPE_IMAGES = 3, 2, 2, 8
+# phase k: the committed ANN fixture converted at ConvertConfig()'s defaults
+# (T=128, 32 calibration images) and scored on 48 val images; a full-width
+# conversion calibrated on the committed COCO fixture, T cut from 128 to 64
+FIXTURE_NPZ = ("tests", "fixtures", "ann_detector", "ann_tiny_yolo.npz")
+COCO_JSON = ("tests", "fixtures", "coco_fixture", "instances.json")
+CONVERT_FIXTURE_CC: dict = {}  # ConvertConfig overrides for step 1: none
+CONVERT_EVAL_IMAGES, CONVERT_FULL_T = 48, 64
 
 
 def card() -> dict:
@@ -1081,12 +1111,13 @@ def phase_pipeline(dev, tag) -> dict:
     root = tempfile.mkdtemp(prefix="chip_smoke_pipeline_")
     ckpt_dir = os.path.join(root, "ckpt")
     cfg = CONFIG
-    rows, captured = [], []
+    rows = []
     eval_tags = iter(["trained", "pruned", "qat", "uniform_t3", "qat_dense",
                       "uniform_t3_dense"])
     real = {"train_steps": harness.train_steps, "evaluate_detector": harness.evaluate_detector,
             "prune_tree": pruning.prune_tree, "mask_tree": pruning.mask_tree,
             "fused_pipeline": fp.fused_pipeline}
+    record, captured = fused_recorder(fp, 27)  # the uniform T=3 evaluation's launches
     train_tags = iter(["train", "qat_train"])
 
     def timed(stage, fn, *a, **k):
@@ -1112,7 +1143,7 @@ def phase_pipeline(dev, tag) -> dict:
         tag_ = next(eval_tags)
         capture = tag_ == "uniform_t3"
         if capture:
-            fp.fused_pipeline = capture_fused
+            fp.fused_pipeline = record
         try:
             out, row = timed(tag_, real["evaluate_detector"], det, **k)
         finally:
@@ -1138,14 +1169,6 @@ def phase_pipeline(dev, tag) -> dict:
     def mask_tree(params, rate):
         out, row = timed("mask", real["mask_tree"], params, rate)
         print(json.dumps({"phase": "pipeline_stage", **row, **tag}), flush=True)
-        return out
-
-    def capture_fused(*args, **kwargs):
-        out = real["fused_pipeline"](*args, **kwargs)
-        if len(captured) < 27:
-            x, w_, taps, affine, v0 = args
-            captured.append(dict(x=x.clone(), w=w_, taps=taps, affine=affine,
-                                 v0=None if v0 is None else v0.clone(), **kwargs))
         return out
 
     harness.train_steps, harness.evaluate_detector = train_steps, evaluate_detector
@@ -1208,20 +1231,8 @@ def phase_pipeline(dev, tag) -> dict:
     if len(captured) != 27 or captured[1]["x"].shape[0] != 3:
         raise AssertionError(f"uniform T=3: captured {len(captured)} layers, conv_block "
                              f"t_in {captured[1]['x'].shape[0] if len(captured) > 1 else None}")
-    uniform_ms, uniform_plain_ms, max_err = 0.0, 0.0, 0.0
-    for args in captured:
-        a = dict(args)
-        x, w_, taps, affine, v0 = (a.pop(k) for k in ("x", "w", "taps", "affine", "v0"))
-        spk, mem = fp.fused_pipeline(x, w_, taps, affine, v0, **a)
-        rspk, rmem = fp.fused_pipeline_reference(x, w_, taps, affine, v0, **a)
-        torch.cuda.synchronize()
-        max_err = max(max_err, float((mem - rmem).abs().max()))
-        if not (bits_equal(spk, rspk) and bits_equal(mem, rmem)):
-            raise AssertionError(f"uniform T=3: kernel != plain version at layer input "
-                                 f"{tuple(x.shape)}")
-        uniform_ms += device_ms(lambda: fp.fused_pipeline(x, w_, taps, affine, v0, **a))[0]
-        uniform_plain_ms += elapsed_ms(
-            lambda: fp.fused_pipeline_reference(x, w_, taps, affine, v0, **a), reps=1)
+    uniform, _ = replay_fused([n for n in det.plan.layers if n != "head"], captured, tag,
+                              phase="pipeline_uniform_t3", plain_ms=True)
     del captured[:]
 
     # 3. the pruned support: every entry pruning zeroed is still exactly 0
@@ -1241,8 +1252,8 @@ def phase_pipeline(dev, tag) -> dict:
            "summary": rep.summary(), "kernel_vs_dense": equal,
            "pruned_support_preserved": True, "kept_weights": kept,
            "accumulator_max_abs": acc["max_abs"], "accumulator_within_16b": acc["within_16b"],
-           "uniform_t3_kernel_ms": uniform_ms, "uniform_t3_plain_ms": uniform_plain_ms,
-           "uniform_t3_max_abs_err": max_err, "stages": rows}
+           "uniform_t3_kernel_ms": uniform["ms"], "uniform_t3_plain_ms": uniform["plain_ms"],
+           "stages": rows}
     print(json.dumps({"phase": "pipeline", **out, **tag}), flush=True)
     del rep, det, dets, frames
     torch.cuda.empty_cache()
@@ -1276,6 +1287,384 @@ def phase_pipeline(dev, tag) -> dict:
     if not done or not done[0].startswith("all "):
         raise AssertionError(f"run --fast did not complete: {out['benchmarks_run']['tail']}")
     shutil.rmtree(root)
+    return out
+
+
+def fused_recorder(fp, limit: int):
+    """(stand-in, captured): a stand-in for ``fp.fused_pipeline`` that calls
+    it and keeps the first ``limit`` launches' inputs (cloned), for the
+    replay against the plain version."""
+    real = fp.fused_pipeline
+    captured = []
+
+    def record(*args, **kwargs):
+        out = real(*args, **kwargs)
+        if len(captured) < limit:
+            x, w_, taps, affine, v0 = args
+            captured.append(dict(x=x.clone(), w=w_, taps=taps, affine=affine,
+                                 v0=None if v0 is None else v0.clone(), **kwargs))
+        return out
+
+    return record, captured
+
+
+def replay_fused(names, captured, tag, *, phase: str, plain_ms: bool) -> tuple[dict, list]:
+    """Each captured launch through the kernel and its plain version, bit for
+    bit (the plain version one image at a time: a batch's rows are
+    independent, and its im2col at T=64 and full width would not fit at
+    once), with the kernel's device ms, its tile plan (``resident``: the
+    tile's weights kept in shared memory, 0 if streamed), the spike rate and
+    the layer's bound. Returns (totals per pass, rows)."""
+    from repro_torch.kernels import fused_pipeline as fp
+
+    tot = {"ms": 0.0, "plain_ms": 0.0 if plain_ms else None, "bound_ms": 0.0}
+    bound_by = {"bytes": 0.0, "operations": 0.0}
+    rows = []
+    for name, args in zip(names, captured):
+        a = dict(args)
+        x, w_, taps, affine, v0 = (a.pop(k) for k in ("x", "w", "taps", "affine", "v0"))
+        spk, mem = fp.fused_pipeline(x, w_, taps, affine, v0, **a)
+        plan = fp.last_plan()
+        rate = int(spk.sum(dtype=torch.int64)) / spk.numel()
+        for i in range(x.shape[1]):
+            rspk, rmem = fp.fused_pipeline_reference(
+                x[:, i : i + 1], w_, taps, affine, None if v0 is None else v0[i : i + 1], **a)
+            torch.cuda.synchronize()
+            if not (bits_equal(spk[:, i : i + 1].contiguous(), rspk)
+                    and bits_equal(mem[i : i + 1], rmem)):
+                raise AssertionError(f"{phase}: kernel != plain version at {name}, image {i}, "
+                                     f"input {tuple(x.shape)}")
+            del rspk, rmem
+        del spk, mem
+        ms, _ = device_ms(lambda: fp.fused_pipeline(x, w_, taps, affine, v0, **a), reps=3)
+        row = {"layer": name, "x": list(x.shape), "t_out": a["t_out"], "kout": a["kout"],
+               "live_taps": len(taps), "spike_rate": rate, "ms": ms}
+        if plain_ms:
+            row["plain_ms"] = elapsed_ms(
+                lambda: fp.fused_pipeline_reference(x, w_, taps, affine, v0, **a), reps=1)
+            tot["plain_ms"] += row["plain_ms"]
+        row["bound_ms"], row["bound_by"] = layer_bound(args)
+        row["resident"], row["plan"] = plan["resident"], plan
+        bound_by[row["bound_by"]] += row["bound_ms"]
+        tot["ms"] += ms
+        tot["bound_ms"] += row["bound_ms"]
+        rows.append(row)
+        print(json.dumps({"phase": f"{phase}_layer", **row, **tag}), flush=True)
+    tot["bound_by"] = max(bound_by, key=bound_by.get)
+    return tot, rows
+
+
+def evaluate_both(cfg, params, bn, dev, *, n_images: int, source, n_fused: int,
+                  label: str, tag) -> dict:
+    """The converted detector evaluated on one split through the kernel
+    executor (the launch counts set to 0 just before, read just after; the
+    first ``detect()``'s fused launches captured) and through the dense
+    executor. Gates: the reports identical, every batch's head bit-equal,
+    ``valid`` and ``classes`` equal, ``n_fused`` fused launches per
+    ``detect()`` and none on the dense executor."""
+    import math
+
+    from repro_torch import backend
+    from repro_torch.eval import harness
+    from repro_torch.eval import sharded as se
+    from repro_torch.kernels import fused_pipeline as fp
+
+    real = fp.fused_pipeline
+    record, captured = fused_recorder(fp, n_fused)
+    out = {}
+    for ex in ("pallas", "dense"):
+        det = harness.compile_eval_detector(dataclasses.replace(cfg, conv_exec=ex), params, bn,
+                                            device=dev)
+        seen = []
+        real_detect = det.detect
+
+        def detect(frames, _real=real_detect, _seen=seen):
+            d, h = _real(frames)
+            _seen.append((d, h))
+            return d, h
+
+        det.detect = detect
+        fp.fused_pipeline = record if ex == "pallas" else real
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            backend.reset_launches()
+            t0 = time.perf_counter()
+            rep = harness.evaluate_detector(det, n_images=n_images, source=source)
+            torch.cuda.synchronize()
+            s = time.perf_counter() - t0
+            launches = dict(backend.launches)
+        finally:
+            fp.fused_pipeline = real
+        detects = math.ceil(rep["n_images"] / 8)  # evaluate_detector's batch
+        want = {fp.KERNEL: n_fused * detects} if ex == "pallas" else {}
+        if {k: v for k, v in launches.items() if v} != want:
+            raise AssertionError(f"{label} [{ex}]: launches {launches}; want {want} "
+                                 f"({n_fused} fused per detect())")
+        out[ex] = {"report": rep, "s": s, "images_per_s": rep["n_images"] / s,
+                   "launches": launches, "detects": detects, "seen": seen,
+                   "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        del det
+    k, d = out["pallas"], out["dense"]
+    if not se.reports_identical(k["report"], d["report"]):
+        raise AssertionError(f"{label}: the kernel's report differs from the dense executor's: "
+                             f"{k['report']} vs {d['report']}")
+    for b, ((kd, kh), (dd_, dh)) in enumerate(zip(k.pop("seen"), d.pop("seen"))):
+        if not torch.isfinite(kh).all():
+            raise AssertionError(f"{label}: non-finite head in batch {b}")
+        if not bits_equal(kh, dh):
+            raise AssertionError(f"{label}: kernel head != dense head in batch {b}: max |Δ| "
+                                 f"{float((kh - dh).abs().max())}")
+        for f in ("valid", "classes"):
+            if not torch.equal(getattr(kd, f), getattr(dd_, f)):
+                raise AssertionError(f"{label}: detections.{f} differ from dense in batch {b}")
+    if len(captured) != n_fused:
+        raise AssertionError(f"{label}: captured {len(captured)} fused launches, want {n_fused}")
+    return {"executors": out, "captured": captured}
+
+
+def timed_convert(cv, emit, ann, cc, *, source, device) -> tuple:
+    """convert_ann with its calibration and head fit timed apart (the rest is
+    the emit: rescale, conditioning, plan). Returns (out, stats, times)."""
+    real_cal, real_fit = emit._calibrate, emit._fit_head_scale
+    got, times = {}, {}
+
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    def cal(*a, **k):
+        t = time.perf_counter()
+        got["stats"] = real_cal(*a, **k)
+        sync()
+        times["calibration_s"] = time.perf_counter() - t
+        return got["stats"]
+
+    def fit(*a, **k):
+        t = time.perf_counter()
+        alpha = real_fit(*a, **k)
+        sync()
+        times["head_fit_s"] = time.perf_counter() - t
+        return alpha
+
+    emit._calibrate, emit._fit_head_scale = cal, fit
+    try:
+        sync()
+        t0 = time.perf_counter()
+        out = cv.convert_ann(ann, source=source, cc=cc, device=device)
+        sync()
+        times["total_s"] = time.perf_counter() - t0
+    finally:
+        emit._calibrate, emit._fit_head_scale = real_cal, real_fit
+    times["emit_s"] = times["total_s"] - times["calibration_s"] - times["head_fit_s"]
+    return out, got["stats"], times
+
+
+def int8_compare(plan_a, plan_b, params_a) -> dict:
+    """The two plans' int8 weights: how many differ, by how much, and how many
+    of those sit on a rounding half of ``params_a``'s float weight over its
+    scale (the two devices' f32 sums in another order; any other difference
+    is a fault)."""
+    n = other = worst = 0
+    for name, lp in plan_a.layers.items():
+        a, b = lp.w_q.cpu().numpy(), plan_b.layers[name].w_q.cpu().numpy()
+        diff = a != b
+        if not diff.any():
+            continue
+        q = params_a[name]["w"].cpu().numpy() / float(lp.scale)
+        half = np.abs(np.abs(q - np.trunc(q)) - 0.5) <= 2e-3
+        n += int(diff.sum())
+        other += int((diff & ~half).sum())
+        worst = max(worst, int(np.abs(a.astype(np.int32) - b).max()))
+    return {"int8_differ": n, "int8_max_abs_diff": worst, "int8_not_at_a_half": other}
+
+
+def phase_conversion(dev, tag) -> dict:
+    """(k) ANN→SNN conversion (``repro_torch.convert``) on the card, its
+    converted detectors served by the fused kernel at T=128 and T=64.
+
+    1. The committed fixture at ``ConvertConfig()`` (T=128, 32 calibration
+       images of the synthetic train split), converted on the card and on
+       the CPU: the largest relative differences of λ, γ, β and α, and the
+       plans' int8 weights compared. 48 val images evaluated through the
+       kernel and the dense executor (reports identical, heads bit-equal,
+       one fused launch per fused layer per ``detect()``: 17 at the
+       fixture's 3 stages), the first ``detect()``'s launches replayed
+       against the plain version; the mAP beside the JAX package's 0.39.
+    2. A seeded ANN-mode ``CONFIG`` (576×1024, block 18×32) exported and
+       loaded back, converted on the 4 images of the committed COCO
+       fixture at T=64, its 4 letterboxed images evaluated likewise (27
+       fused launches per ``detect()``, spikes reaching stage4, every
+       layer's plan and resident weights printed).
+    3. The converted checkpoint through the CLIs, in subprocesses: convert,
+       the serve CLI's ``--eval-map`` gate, ``eval_map --checkpoint`` on the
+       COCO fixture.
+    4. The stage times, images/s per executor, the fused kernel's device ms
+       per ``detect()`` beside its bound, and peak memory, each printed."""
+    import tempfile
+
+    from repro_torch import convert as cv
+    from repro_torch.configs.snn_det import CONFIG
+    from repro_torch.convert import emit
+    from repro_torch.core import plan as cplan
+    from repro_torch.data import detection_datasets as dd
+    from repro_torch.models import snn_yolo as sy
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    fixture = os.path.join(here, *FIXTURE_NPZ)
+    coco = os.path.join(here, *COCO_JSON)
+    root = tempfile.mkdtemp(prefix="chip_smoke_convert_")
+    out = {}
+
+    def fused_names(plan):
+        return [n for n in plan.layers if n != "head"]
+
+    # ----------------------------------------- 1. the fixture at T=128
+    ann = cv.load_ann_npz(fixture)
+    cc = dataclasses.replace(cv.ConvertConfig(), **CONVERT_FIXTURE_CC)
+    conv, stats, times = timed_convert(cv, emit, ann, cc, source=None, device=dev)
+    cpu, cpu_stats, cpu_times = timed_convert(cv, emit, ann, cc, source=None, device="cpu")
+
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+    names = cv.conv_bn_layer_names(ann.cfg)
+    card_vs_cpu = {
+        "lambda": max(rel(stats.layers[n].lam, cpu_stats.layers[n].lam) for n in names),
+        "gamma": max(rel(conv.params[n]["gamma"].cpu(), cpu.params[n]["gamma"]) for n in names),
+        "beta": max(rel(conv.params[n]["beta"].cpu(), cpu.params[n]["beta"]) for n in names),
+        "alpha": rel(conv.report["head_scale_fit"], cpu.report["head_scale_fit"]),
+        **int8_compare(cplan.build_plan(conv.params, conv.cfg),
+                       cplan.build_plan(cpu.params, cpu.cfg), conv.params),
+    }
+    del cpu
+    print(json.dumps({"phase": "conversion_fixture", "t": conv.cfg.full_t,
+                      "calib_images": cc.calib_images, "card_times": times, "cpu_times": cpu_times,
+                      "card_vs_cpu": card_vs_cpu, "alpha": conv.report["head_scale_fit"],
+                      **tag}), flush=True)
+    plan = cplan.build_plan(conv.params, conv.cfg)
+    ev = evaluate_both(conv.cfg, conv.params, conv.bn_state, dev, n_images=CONVERT_EVAL_IMAGES,
+                       source=None, n_fused=len(fused_names(plan)), label="fixture", tag=tag)
+    rep = ev["executors"]["pallas"]["report"]
+    fixture_map = {"map": rep["map"], "per_class_ap": rep["per_class_ap"],
+                   "n_images": rep["n_images"], "jax_cpu_map_t128": 0.39,
+                   "jax_cpu_map_t64": 0.30,
+                   "finding_below_0_30": bool(rep["map"] < 0.30)}
+    tot, rows = replay_fused(fused_names(plan), ev.pop("captured"), tag,
+                             phase="conversion_fixture", plain_ms=True)
+    ex = ev["executors"]
+    out["fixture"] = {
+        "t": conv.cfg.full_t, "times": times, "cpu_times": cpu_times,
+        "card_vs_cpu": card_vs_cpu, "mAP": fixture_map,
+        "launches": ex["pallas"]["launches"], "detects": ex["pallas"]["detects"],
+        "fused_launches_per_detect": len(fused_names(plan)),
+        "images_per_s": {k: v["images_per_s"] for k, v in ex.items()},
+        "eval_s": {k: v["s"] for k, v in ex.items()},
+        "peak_gib": {k: v["peak_gib"] for k, v in ex.items()},
+        "fused_ms_per_detect": tot, "batch": rows[1]["x"][1],
+        "resident": {r["layer"]: r["resident"] for r in rows},
+    }
+    print(json.dumps({"phase": "conversion_fixture_eval", **out["fixture"], **tag}), flush=True)
+    del conv, ev, rows
+    torch.cuda.empty_cache()
+
+    # -------------------------- 2. full width, calibrated on the COCO fixture
+    acfg = dataclasses.replace(CONFIG, arch_id="snn-det-ann", mode="ann", weight_bits=0,
+                               conv_exec="dense")
+    params, bn = sy.init_params(acfg, seed=SEED, device=dev)
+    npz = os.path.join(root, "ann_full.npz")
+    t0 = time.perf_counter()
+    cv.export_ann_npz(npz, params, bn, acfg)
+    full = cv.load_ann_npz(npz)
+    io_s = time.perf_counter() - t0
+    if not all(np.array_equal(full.layers[n].w, params[n]["w"].cpu().numpy())
+               for n in full.layers):
+        raise AssertionError("export_ann_npz -> load_ann_npz changed a weight")
+    del params, bn
+    source = dd.parse_dataset_spec(f"coco:{coco}")
+    cc2 = dataclasses.replace(cv.ConvertConfig(), calib_images=4, full_t=CONVERT_FULL_T)
+    torch.cuda.reset_peak_memory_stats()
+    conv2, _, times2 = timed_convert(cv, emit, full, cc2, source=source, device=dev)
+    convert_peak = torch.cuda.max_memory_allocated() / 2**30
+    plan2 = cplan.build_plan(conv2.params, conv2.cfg)
+    n2 = len(fused_names(plan2))
+    if n2 != 27:
+        raise AssertionError(f"full width: {n2} fused layers, want 27")
+    ev2 = evaluate_both(conv2.cfg, conv2.params, conv2.bn_state, dev, n_images=4,
+                        source=source, n_fused=n2, label="full_width", tag=tag)
+    tot2, rows2 = replay_fused(fused_names(plan2), ev2.pop("captured"), tag,
+                               phase="conversion_full", plain_ms=False)
+    rates = {r["layer"]: r["spike_rate"] for r in rows2}
+    if not rates["stage4/agg"] > 0:
+        raise AssertionError(f"full width: no spikes reach stage4: rates {rates}")
+    ex2 = ev2["executors"]
+    rep2 = ex2["pallas"]["report"]
+    out["full_width"] = {
+        "input_hw": list(conv2.cfg.input_hw), "t": conv2.cfg.full_t, "calib_images": 4,
+        "cuts": {"t": f"{CONVERT_FULL_T} of ConvertConfig's 128: the dense oracle's f32 drives "
+                      "at T=128 would hold ~10 GB at conv_block alone",
+                 "calib_images": "4: all the COCO fixture has"},
+        "export_load_s": io_s, "times": times2, "convert_peak_gib": convert_peak,
+        "launches": ex2["pallas"]["launches"], "fused_launches_per_detect": n2,
+        "map": rep2["map"], "n_images": rep2["n_images"],
+        "images_per_s": {k: v["images_per_s"] for k, v in ex2.items()},
+        "eval_s": {k: v["s"] for k, v in ex2.items()},
+        "peak_gib": {k: v["peak_gib"] for k, v in ex2.items()},
+        "fused_ms_per_detect": tot2, "batch": rows2[0]["x"][1],
+        "resident": {r["layer"]: r["resident"] for r in rows2},
+        "spike_rates": rates,
+    }
+    print(json.dumps({"phase": "conversion_full_width", **out["full_width"], **tag}), flush=True)
+    del conv2, ev2, rows2, full
+    torch.cuda.empty_cache()
+
+    # ------------------------------- 3. the converted checkpoint through the CLIs
+    ckpt_dir = os.path.join(root, "converted")
+    env = {**os.environ, "PYTHONPATH": os.path.join(here, "src")}
+    for name, argv, cwd in (
+        ("convert_cli", ["-m", "repro_torch.launch.convert", "--out", ckpt_dir,
+                         "--conv-exec", "pallas", "--eval-images", "48"], here),
+        ("convert_serve_eval_map", ["-m", "repro_torch.launch.serve", "--arch", "snn-det",
+                                    "--checkpoint", ckpt_dir, "--conv-exec", "pallas",
+                                    "--eval-map", "--requests", "8"], root),
+        ("convert_eval_map", ["-m", "repro_torch.benchmarks.eval_map", "--checkpoint", ckpt_dir,
+                              "--dataset", f"coco:{coco}"], root),
+    ):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, *argv], env=env, cwd=cwd, capture_output=True,
+                           text=True, timeout=600)
+        lines = r.stdout.splitlines()
+        out[name] = {"rc": r.returncode, "seconds": time.perf_counter() - t0,
+                     "tail": [ln for ln in lines if any(
+                         s in ln for s in ("mAP", "parity", "served", "restored", "converted in",
+                                           "wrote"))]}
+        print(json.dumps({"phase": name, **out[name], **tag}), flush=True)
+        if r.returncode != 0:
+            raise AssertionError(f"{name} exited {r.returncode}: {r.stdout[-3000:]}"
+                                 f"{r.stderr[-3000:]}")
+    if not any(ln.startswith("converted mAP@0.5 = ") for ln in out["convert_cli"]["tail"]):
+        raise AssertionError(f"convert CLI: no mAP line: {out['convert_cli']['tail']}")
+    tail = out["convert_serve_eval_map"]["tail"]
+    if not any("BIT-IDENTICAL" in ln for ln in tail) or not any(
+            "conv_exec pallas" in ln for ln in tail):
+        raise AssertionError(f"serve --eval-map on the converted checkpoint: no BIT-IDENTICAL "
+                             f"parity line through the kernel executor: {tail}")
+    if not os.path.exists(os.path.join(root, "BENCH_torch_eval_ckpt.json")) or os.path.exists(
+            os.path.join(root, "BENCH_eval.json")):
+        raise AssertionError(f"eval_map --checkpoint wrote {sorted(os.listdir(root))}")
+    shutil.rmtree(root)
+
+    # ----------------------------------------------------------- 4. the times
+    h, w = out["full_width"]["input_hw"]
+    for key, label in (("fixture", "the ANN fixture, 96x160"), ("full_width", f"CONFIG, {h}x{w}")):
+        o = out[key]
+        print(json.dumps({"phase": "conversion_time", "cell": label, "t": o["t"], **o["times"],
+                          "images_per_s": o["images_per_s"],
+                          "fused_ms_per_detect": o["fused_ms_per_detect"]["ms"],
+                          "fused_bound_ms_per_detect": o["fused_ms_per_detect"]["bound_ms"],
+                          "bound_by": o["fused_ms_per_detect"]["bound_by"],
+                          "batch": o["batch"], "peak_gib": o["peak_gib"], **tag}), flush=True)
     return out
 
 
@@ -1384,17 +1773,8 @@ def main() -> int:
                                  device=dev)
     n_fused = len([n for n in det.plan.layers if n != "head"])
 
-    captured = []  # the kernel's real inputs on frame 0, for replay below
     real_fp = fp.fused_pipeline
-
-    def capture(*args, **kwargs):
-        out = real_fp(*args, **kwargs)
-        if len(captured) < n_fused:
-            x, w_, taps, affine, v0 = args
-            captured.append(dict(x=x.clone(), w=w_, taps=taps, affine=affine,
-                                 v0=None if v0 is None else v0.clone(), **kwargs))
-        return out
-
+    capture, captured = fused_recorder(fp, n_fused)  # frame 0's inputs, for the replay below
     sess = det.new_session(batch=BATCH)
     steps = []
     fp.fused_pipeline = capture
@@ -1529,6 +1909,12 @@ def main() -> int:
     pipeline = phase_pipeline(dev, tag)
     print(json.dumps({"phase": "elapsed", "after": "j", "s": time.perf_counter() - t_start}),
           flush=True)
+
+    # ------------------------------------------------ k. ANN→SNN conversion
+    torch.cuda.empty_cache()
+    conversion = phase_conversion(dev, tag)
+    print(json.dumps({"phase": "elapsed", "after": "k", "s": time.perf_counter() - t_start}),
+          flush=True)
     train_launches = trained["train"]["kernel_launches"]
     bl, el = benches["bench_launches"], benches["e2e_launches"]
     lif0, mm0 = lif["rows"][0], mm["rows"][0]  # kernel_bench's own shapes
@@ -1571,6 +1957,21 @@ def main() -> int:
         "launches_pipeline_per_detect": pipeline["fused_launches_per_detect"],
         "pipeline_uniform_t3_ms": pipeline["uniform_t3_kernel_ms"],
         "pipeline_uniform_t3_plain_ms": pipeline["uniform_t3_plain_ms"],
+        "launches_conversion_fixture": conversion["fixture"]["launches"].get(fp.KERNEL, 0),
+        "launches_conversion_fixture_per_detect":
+            conversion["fixture"]["fused_launches_per_detect"],
+        "conversion_t128_ms": conversion["fixture"]["fused_ms_per_detect"]["ms"],
+        "conversion_t128_plain_ms": conversion["fixture"]["fused_ms_per_detect"]["plain_ms"],
+        "conversion_t128_bound_ms": conversion["fixture"]["fused_ms_per_detect"]["bound_ms"],
+        "conversion_t128_per": f"one detect() of the converted fixture, batch "
+                               f"{conversion['fixture']['batch']}, 96x160: sum over its "
+                               f"{conversion['fixture']['fused_launches_per_detect']} fused layers",
+        "launches_conversion_full_width": conversion["full_width"]["launches"].get(fp.KERNEL, 0),
+        "conversion_t64_ms": conversion["full_width"]["fused_ms_per_detect"]["ms"],
+        "conversion_t64_bound_ms": conversion["full_width"]["fused_ms_per_detect"]["bound_ms"],
+        "conversion_t64_per": f"one detect() of the COCO-calibrated CONFIG conversion, batch "
+                              f"{conversion['full_width']['batch']}, 576x1024: sum over its 27 "
+                              "fused layers",
     }, {
         "name": "gated_one_to_all",
         "route": "cuda",

@@ -17,13 +17,16 @@ the card; ``cpu`` runs the plain PyTorch path).
 ``--ckpt-dir`` commits detector checkpoints after the train and QAT
 stages for ``repro_torch.launch.serve --checkpoint`` to restore;
 ``--checkpoint <dir>`` skips training and scores a saved detector
-(``BENCH_torch_eval_ckpt.json``). ``--shards > 1`` (the mesh-sharded
-evaluation) and datasets other than ``synthetic`` are ROADMAP queue 1
-item 5 and raise.
+(``BENCH_torch_eval_ckpt.json``) — a converted detector
+(``repro_torch.launch.convert``) too. ``--dataset`` takes ``synthetic``,
+``coco:<instances.json>`` or ``voc:<dir>`` (letterboxed annotated frames);
+``--shards > 1`` (the mesh-sharded evaluation) is ROADMAP queue 1 item 7
+and raises.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.eval_map [--fast]
       [--ckpt-dir DIR] [--out-json PATH] [--device cpu]
   PYTHONPATH=src python -m repro_torch.benchmarks.eval_map --checkpoint DIR
+      [--dataset coco:<instances.json>|voc:<dir>]
 """
 from __future__ import annotations
 
@@ -101,9 +104,9 @@ def main(argv=None) -> dict:
                     help="smoke-scale (mAP not representative)")
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--shards", type=int, default=1,
-                    help="evaluation shard count (only 1 is ported)")
+                    help="evaluation shard count (only 1 is ported: ROADMAP item 7)")
     ap.add_argument("--dataset", default="synthetic",
-                    help="train/eval data (only 'synthetic' is ported)")
+                    help="train/eval data: synthetic | coco:<instances.json> | voc:<dir>")
     ap.add_argument("--ckpt-dir", default=None,
                     help="commit detector checkpoints (post-train and post-QAT) "
                          "here; repro_torch.launch.serve --checkpoint restores them")

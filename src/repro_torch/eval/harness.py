@@ -29,7 +29,7 @@ worst-case conv accumulator against the ASIC's 16-bit claim
   off throughout.
 * :func:`evaluate_detector` — mAP@IoU of a compiled detector on an eval
   split, TF32 off (single host; the sharded evaluator is ROADMAP queue 1
-  item 5).
+  item 7).
 * :func:`run_pipeline` — train → prune → QAT → evaluate, returning an
   :class:`EvalReport`; :func:`accumulator_report` — the 16-bit claim.
 * :func:`save_detector_checkpoint` / :func:`restore_detector_checkpoint` —
@@ -118,7 +118,7 @@ def evaluate_detector(det, *, n_images: int = 32, split: str = "val", batch: int
     with TF32 off, so float weights score on the card as on the CPU."""
     if sharded is not None:
         raise NotImplementedError(
-            "sharded evaluation is not ported yet (ROADMAP.md queue 1 item 5); "
+            "sharded evaluation is not ported yet (ROADMAP.md queue 1 item 7); "
             "pass sharded=None"
         )
     source = source or dd.SyntheticSource()
@@ -341,7 +341,7 @@ def run_pipeline(
     borders, so a compressed ``conv_exec`` requires a block-conv config.
 
     ``eval_shards > 1`` (the mesh-sharded evaluation) is ROADMAP queue 1
-    item 5 and raises. ``source`` swaps the dataset for training and
+    item 7 and raises. ``source`` swaps the dataset for training and
     evaluation (synthetic by default). ``ckpt_dir`` commits a detector
     checkpoint after the float stage (step ``steps``) and after QAT (step
     ``steps + finetune_steps``), which ``launch/serve.py --checkpoint``
@@ -361,7 +361,7 @@ def run_pipeline(
     if eval_shards > 1:
         raise NotImplementedError(
             "sharded evaluation (eval_shards > 1) is not ported yet "
-            "(ROADMAP.md queue 1 item 5); pass eval_shards=1"
+            "(ROADMAP.md queue 1 item 7); pass eval_shards=1"
         )
     float_cfg = dataclasses.replace(base, weight_bits=0, conv_exec="dense")
     quant_cfg = dataclasses.replace(base, weight_bits=8, conv_exec=conv_exec)

@@ -4,7 +4,7 @@ Counterpart of the predicate half of ``repro/eval/sharded.py``:
 :func:`reports_identical` is what ``benchmarks/eval_map.py`` and the serve
 CLI's ``--eval-map`` gate on. The mesh-sharded evaluator itself (striped
 split, per-shard forward→decode→NMS, a gathered and re-sorted reduction)
-is ROADMAP queue 1 item 5; ``harness.evaluate_detector(sharded=)`` raises
+is ROADMAP queue 1 item 7; ``harness.evaluate_detector(sharded=)`` raises
 until it lands.
 """
 from __future__ import annotations

@@ -455,4 +455,6 @@ extern "C" int fused_pipeline_packed_launch(
   return launch(p, true, static_cast<cudaStream_t>(stream));
 }
 
-extern "C" void fused_pipeline_last_plan(int* out) { std::copy(g_last_plan, g_last_plan + 10, out); }
+extern "C" void fused_pipeline_last_plan(int* out) {
+  std::copy(g_last_plan, g_last_plan + kPlanInts, out);
+}

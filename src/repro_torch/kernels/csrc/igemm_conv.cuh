@@ -47,7 +47,7 @@ constexpr int kThreads = 256;  // 8 warps
 constexpr int kSmemMax = 227 * 1024;
 constexpr int kAChunkBytes = 16384;  // the most bytes of one A chunk (rows x KC)
 constexpr int kStages = 3;           // A chunks in shared memory: 2 in flight
-constexpr int kPlanInts = 11;        // the launch plan a kernel records (launch_persistent)
+constexpr int kPlanInts = 12;        // the launch plan a kernel records (launch_persistent)
 
 // Which tiles may read the A operand from a halo tile: a kernel's policy,
 // the constant kHalo of its Params, which plan_smem and conv_tiles both
@@ -765,7 +765,7 @@ int launch_persistent(void (*kernel)(P), P& p, int smem, cudaStream_t s, int* pl
   if (ctiles > 65535 || bx > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   kernel<<<dim3((unsigned)bx, (unsigned)ctiles), kThreads, smem, s>>>(p);
   const int out[kPlanInts] = {smem, T::TB, T::BP, T::BN, p.halo, p.halo ? p.cc : p.kc, p.nch,
-                              (int)bx, (int)ctiles, occ, p.kseg};
+                              (int)bx, (int)ctiles, occ, p.kseg, p.resident};
   std::copy(out, out + kPlanInts, plan);
   return (int)cudaGetLastError();
 }

@@ -274,13 +274,15 @@ def fused_pipeline_packed(
 
 
 PLAN_KEYS = ("smem_bytes", "steps_per_pass", "tile_pixels", "tile_channels", "halo",
-             "chunk", "chunks_per_pass", "grid_x", "grid_y", "blocks_per_sm")
+             "chunk", "chunks_per_pass", "grid_x", "grid_y", "blocks_per_sm", "k_segment",
+             "resident")
 
 
 def last_plan() -> dict:
     """The tile plan of this process's last kernel launch (either weight
     mode), for diagnostics: shared memory, tile shape, halo mode, chunks,
-    grid and blocks per SM."""
+    grid, blocks per SM, and whether the tile's weights are resident in
+    shared memory (1) or streamed in K-chunks (0)."""
     out = (ctypes.c_int * len(PLAN_KEYS))()
     backend.load_kernels()[KERNEL].fused_pipeline_last_plan(out)
     return dict(zip(PLAN_KEYS, out))

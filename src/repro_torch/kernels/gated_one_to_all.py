@@ -129,7 +129,8 @@ def gated_one_to_all(
 
 
 PLAN_KEYS = ("smem_bytes", "steps_per_pass", "tile_pixels", "tile_channels", "halo",
-             "chunk", "chunks_per_pass", "grid_x", "grid_y", "blocks_per_sm", "k_segment")
+             "chunk", "chunks_per_pass", "grid_x", "grid_y", "blocks_per_sm", "k_segment",
+             "resident")
 
 
 def last_plan() -> dict:
@@ -137,7 +138,8 @@ def last_plan() -> dict:
     shared memory, images per pass (``steps_per_pass``, always 1: the
     images fold into the pixel tiles), tile shape, halo mode, chunk
     (channels in halo mode, else K-dim bytes), chunks per pass, grid,
-    blocks per SM and the K-dim bytes of weights decoded at once."""
+    blocks per SM, the K-dim bytes of weights decoded at once, and whether
+    they stay in shared memory (1, per segment) or stream (0)."""
     out = (ctypes.c_int * len(PLAN_KEYS))()
     backend.load_kernels()[KERNEL].gated_one_to_all_last_plan(out)
     return dict(zip(PLAN_KEYS, out))

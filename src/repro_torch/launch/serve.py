@@ -2,14 +2,15 @@
 continuous batching over a slot pool, with the compile-once detector and
 its membranes resident on the device. Counterpart of the snn-det half of
 ``repro/launch/serve.py`` (the LM architectures are ROADMAP queue 1
-items 7 and 9; ``--dataset`` takes ``synthetic`` and ``--eval-shards`` 1
-only, item 5).
+items 7 and 9; ``--dataset`` takes ``synthetic``, ``coco:<instances.json>``
+or ``voc:<dir>``; ``--eval-shards`` 1 only, item 7).
 
 ``--eval-map`` serves the val split, one frame per request, and scores the
 served detections (mAP@0.5). With ``--checkpoint`` the detector is built
 with the evaluation postprocess settings and the score must equal
 ``harness.evaluate_detector`` on the same weights bit for bit: the run
-prints the parity line and exits non-zero on a mismatch.
+prints the parity line and exits non-zero on a mismatch. A finite
+dataset with fewer val images than ``--requests`` serves all of them.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch snn-det \\
@@ -17,7 +18,8 @@ Usage:
       [--max-queue 16 --on-full reject|shed-oldest] [--full-config] \\
       [--checkpoint DIR] [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch snn-det --eval-map \\
-      --checkpoint DIR [--requests 8] [--device cpu]
+      --checkpoint DIR [--requests 8] [--dataset coco:<instances.json>|voc:<dir>] \\
+      [--device cpu]
 """
 from __future__ import annotations
 
@@ -54,7 +56,7 @@ def _serve_detector(cfg, args):
     if args.eval_shards > 1:
         raise NotImplementedError(
             f"--eval-shards {args.eval_shards}: sharded evaluation is not ported yet "
-            "(ROADMAP.md queue 1 item 5); use --eval-shards 1"
+            "(ROADMAP.md queue 1 item 7); use --eval-shards 1"
         )
     if args.checkpoint:
         # trained weights: the checkpoint's config sidecar replaces the
@@ -78,16 +80,21 @@ def _serve_detector(cfg, args):
         det = sy.compile_detector(cfg, params, bn, device=args.device)
     eng = Engine(det, n_slots=args.slots, admission=_admission(args))
     gts = None
+    n_requests = args.requests
     if args.eval_map:
         # the val split, one frame per request (each admission cold-starts
         # its slot); the served detections are what gets scored
+        cap = source.num_eval_images("val")
+        if cap is not None and cap < n_requests:
+            print(f"  ({args.dataset} has {cap} val images; serving all of them)")
+            n_requests = cap
         images, gts = source.eval_set(
-            args.requests, hw=cfg.input_hw, grid_div=harness.grid_div(cfg),
+            n_requests, hw=cfg.input_hw, grid_div=harness.grid_div(cfg),
             num_anchors=cfg.num_anchors, num_classes=cfg.num_classes,
         )
         streams = [img[None] for img in images]
     else:
-        streams = synth_streams(rng, args.requests, args.frames, cfg.input_hw)
+        streams = synth_streams(rng, n_requests, args.frames, cfg.input_hw)
     for r, frames in enumerate(streams):
         eng.submit(FrameRequest(rid=r, frames=frames))
     _report_rejections(eng)
@@ -95,8 +102,8 @@ def _serve_detector(cfg, args):
     with sy._no_tf32():  # the harness evaluates in full f32; so does this run
         done = eng.run()
     dt = time.time() - t0
-    if len(done) != args.requests - len(eng.rejected):
-        raise SystemExit(f"served {len(done)} of {args.requests - len(eng.rejected)} "
+    if len(done) != n_requests - len(eng.rejected):
+        raise SystemExit(f"served {len(done)} of {n_requests - len(eng.rejected)} "
                          f"admitted streams ({done.status})")
     total_frames = sum(len(r.out) for r in done)
     lat = step_latency_ms(eng.core.step_wall)
@@ -158,14 +165,15 @@ def main(argv=None):
                          "ckpt_dir, benchmarks.eval_map --ckpt-dir) instead of "
                          "random calibrated demo weights")
     ap.add_argument("--dataset", default="synthetic",
-                    help="--eval-map split (only 'synthetic' is ported)")
+                    help="--eval-map split: synthetic | coco:<instances.json> | voc:<dir>")
     ap.add_argument("--eval-map", action="store_true",
                     help="serve the val split and report mAP@0.5 of the served "
                          "detections; with --checkpoint the score uses evaluation "
                          "postprocess settings and must equal "
                          "harness.evaluate_detector bit for bit")
     ap.add_argument("--eval-shards", type=int, default=1,
-                    help="shard count of the --eval-map reduction (only 1 is ported)")
+                    help="shard count of the --eval-map reduction (only 1 is ported: "
+                         "ROADMAP item 7)")
     ap.add_argument("--max-queue", type=int, default=None,
                     help="admission control: bound the submit queue at this many "
                          "waiting requests (default: unbounded)")

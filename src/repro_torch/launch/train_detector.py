@@ -2,7 +2,7 @@
 under ``ft.Supervisor`` restarts, then the SNN-a → SNN-d compression
 (prune 80% of the 3×3 kernels, fake-quantize the convs to 8 bits), the
 compile-once detector on the result, mAP@0.5 (trained vs pruned+quant) on
-the synthetic val split, and a detector checkpoint that either package
+the val split, and a detector checkpoint that either package
 restores and serves. Counterpart of ``examples/train_snn_detector.py``.
 
 Usage:
@@ -11,7 +11,9 @@ Usage:
 
 ``--full-config`` trains the paper's 576×1024 ``snn-det`` (block conv
 18×32) instead of the 96×160 demo configuration; ``--dataset`` takes
-``synthetic`` only and ``--eval-shards`` 1 only (ROADMAP queue 1 item 5).
+``synthetic``, ``coco:<instances.json>`` or ``voc:<dir>`` (letterboxed
+annotated frames, for training and the mAP report); ``--eval-shards`` 1
+only (the sharded evaluator is ROADMAP queue 1 item 7).
 Runs on the card unless ``--device cpu``; exits non-zero when the loss did
 not fall.
 """
@@ -45,15 +47,21 @@ def main(argv=None) -> dict:
     ap.add_argument("--ckpt", default=os.path.join(tempfile.gettempdir(), "snn_det_ckpt"),
                     help="checkpoint root: train state, heartbeat, and the detector "
                          "checkpoint under <ckpt>/detector")
-    ap.add_argument("--dataset", default="synthetic", help="train/eval data: synthetic")
+    ap.add_argument("--dataset", default="synthetic",
+                    help="train/eval data: synthetic | coco:<instances.json> | voc:<dir>")
     ap.add_argument("--eval-images", type=int, default=16,
                     help="val images for the post-training mAP report")
-    ap.add_argument("--eval-shards", type=int, default=1, choices=[1],
-                    help="sharded evaluation is not ported: 1 only")
+    ap.add_argument("--eval-shards", type=int, default=1,
+                    help="shard count of the mAP report (only 1 is ported: ROADMAP item 7)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--full-config", action="store_true",
                     help="the paper's 576x1024 snn-det instead of the demo config")
     args = ap.parse_args(argv)
+    if args.eval_shards > 1:
+        raise NotImplementedError(
+            f"--eval-shards {args.eval_shards}: sharded evaluation is not ported yet "
+            "(ROADMAP.md queue 1 item 7); use --eval-shards 1"
+        )
     source = dd.parse_dataset_spec(args.dataset)
     dev = resolve_device(args.device)
 

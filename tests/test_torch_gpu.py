@@ -4,13 +4,16 @@ its tensor-core tilings, weights resident or streamed — the packed mode
 decoding streamed K-chunks), the gated one-to-all conv and the fused LIF;
 the bitmask matmul within 1e-5·(|x|@|W|) + 1e-6 of its plain version and
 of a float64 product (f32 sums in another order), its split-K path the
-same from run to run; and the megabatched Engine on the card against solo
-session replays. Needs a CUDA device and nothing of JAX; skips without a
-card:
+same from run to run; the megabatched Engine on the card against solo
+session replays; and the ANN→SNN conversion on the card against the CPU's,
+a converted detector's fused launches at T=128 against the plain version,
+and the COCO fixture feeding ``evaluate_detector``. Needs a CUDA device and
+nothing of JAX; skips without a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -475,3 +478,126 @@ def test_run_pipeline_on_the_card_kernel_equals_dense(cuda, tmp_path):
             det.bn_state, device=cuda)
         got = rep.stages["qat"] if mixed else rep.schedules["uniform_t3"]
         assert se.reports_identical(got, harness.evaluate_detector(dense, n_images=8)), name
+
+
+# ------------------------------------------------------ ANN→SNN conversion --
+
+_FIXTURE_NPZ = os.path.join(os.path.dirname(__file__), "fixtures", "ann_detector",
+                            "ann_tiny_yolo.npz")
+_COCO_JSON = os.path.join(os.path.dirname(__file__), "fixtures", "coco_fixture",
+                          "instances.json")
+_SMOKE_CC = dict(full_t=4, calib_images=4, calib_batch=4, v_init_frac=0.5)
+
+
+@pytest.mark.gpu
+def test_conversion_on_the_card_equals_cpu(cuda):
+    """The committed fixture converted at ``tests/test_convert.py``'s smoke
+    scale on the card and on the CPU: parameters and tdBN variances within
+    1e-5 of each array's largest magnitude, the tdBN means within 1e-5 of
+    each channel's spread (the f32 convs sum in another order; the
+    statistics are numpy on host copies in both), and the plans' int8
+    weights equal or one apart at a rounding half."""
+    from repro_torch import convert as cv
+    from repro_torch.core import plan as cplan
+
+    ann = cv.load_ann_npz(_FIXTURE_NPZ)
+    cc = cv.ConvertConfig(**_SMOKE_CC)
+    card, cpu = (cv.convert_ann(ann, cc=cc, device=d) for d in (cuda, "cpu"))
+    assert card.params["encode"]["w"].device.type == "cuda"
+
+    def rel(a, b):
+        a, b = a.cpu().double(), b.cpu().double()
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    for name, lp in cpu.params.items():
+        for k, v in lp.items():
+            if name != "head":
+                assert rel(card.params[name][k], v) <= 1e-5, (name, k)
+    for name, st in cpu.bn_state.items():
+        assert rel(card.bn_state[name]["var"], st["var"]) <= 1e-5, name
+        spread = (st["var"].double() + 1e-5).sqrt()
+        drift = (card.bn_state[name]["mean"].cpu().double() - st["mean"].double()).abs() / spread
+        assert float(drift.max()) <= 1e-5, name
+    alpha, calpha = card.report["head_scale_fit"], cpu.report["head_scale_fit"]
+    assert abs(alpha - calpha) <= 2e-3 * abs(calpha)
+    pa, pb = cplan.build_plan(card.params, card.cfg), cplan.build_plan(cpu.params, cpu.cfg)
+    for name, lp in pa.layers.items():
+        if name == "head":
+            continue
+        a, b = lp.w_q.cpu(), pb.layers[name].w_q
+        diff = a != b
+        if bool(diff.any()):
+            q = card.params[name]["w"].cpu() / float(lp.scale)
+            frac = (q - q.trunc()).abs()
+            assert bool(((frac - 0.5).abs()[diff] <= 2e-3).all()), name
+            assert int((a.int() - b.int()).abs().max()) <= 1, name
+
+
+@pytest.mark.gpu
+def test_converted_fused_launches_equal_plain_at_t128(cuda, monkeypatch):
+    """The fixture converted at T=128 (``ConvertConfig``'s default; 4
+    calibration images to keep it short): one ``detect()`` of 4 val images
+    through the kernel executor launches the fused kernel once per fused
+    layer, every launch's inputs replayed through the kernel and its plain
+    version bit for bit, and the head bit-equal to the dense executor's."""
+    from repro_torch import backend
+    from repro_torch import convert as cv
+    from repro_torch.data import synthetic_detection as sd
+    from repro_torch.eval import harness
+
+    ann = cv.load_ann_npz(_FIXTURE_NPZ)
+    out = cv.convert_ann(ann, cc=cv.ConvertConfig(calib_images=4), device=cuda)
+    assert out.cfg.full_t == 128
+    det = harness.compile_eval_detector(dataclasses.replace(out.cfg, conv_exec="pallas"),
+                                        out.params, out.bn_state, device=cuda)
+    dense = harness.compile_eval_detector(dataclasses.replace(out.cfg, conv_exec="dense"),
+                                          out.params, out.bn_state, device=cuda)
+    images, _ = sd.eval_set(4, hw=out.cfg.input_hw, grid_div=harness.grid_div(out.cfg))
+    seen = []
+    real = fp.fused_pipeline
+
+    def record(*args, **kw):
+        seen.append((tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args),
+                     dict(kw)))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(fp, "fused_pipeline", record)
+    backend.reset_launches()
+    dets, head = det.detect(torch.from_numpy(images))
+    torch.cuda.synchronize()
+    n_fused = len(det.plan.layers) - 1
+    assert backend.launches[fp.KERNEL] == n_fused == len(seen)
+    monkeypatch.setattr(fp, "fused_pipeline", real)
+    assert seen[1][1]["t_out"] == 128 and seen[1][0][0].shape[0] == 128
+    for args, kw in seen:
+        spk, mem = fp.fused_pipeline(*args, **kw)
+        rspk, rmem = fp.fused_pipeline_reference(*args, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(spk, rspk)
+        assert torch.equal(mem.view(torch.int32), rmem.view(torch.int32))
+    ddets, dhead = dense.detect(torch.from_numpy(images))
+    assert torch.equal(head.view(torch.int32), dhead.view(torch.int32))
+    for f in ("valid", "classes"):
+        assert torch.equal(getattr(dets, f), getattr(ddets, f))
+
+
+@pytest.mark.gpu
+def test_coco_source_feeds_evaluate_detector_on_the_card(cuda):
+    """The committed COCO fixture calibrates a conversion on the card and
+    feeds ``evaluate_detector``: the kernel executor's report identical to
+    the dense executor's over the 4 letterboxed images."""
+    from repro_torch import convert as cv
+    from repro_torch.data import detection_datasets as dd
+    from repro_torch.eval import harness
+    from repro_torch.eval import sharded as se
+
+    source = dd.parse_dataset_spec(f"coco:{_COCO_JSON}")
+    out = cv.convert_ann(cv.load_ann_npz(_FIXTURE_NPZ), source=source,
+                         cc=cv.ConvertConfig(**_SMOKE_CC), device=cuda)
+    reps = {}
+    for ex in ("pallas", "dense"):
+        det = harness.compile_eval_detector(dataclasses.replace(out.cfg, conv_exec=ex),
+                                            out.params, out.bn_state, device=cuda)
+        reps[ex] = harness.evaluate_detector(det, n_images=48, source=source)
+    assert reps["pallas"]["n_images"] == 4
+    assert se.reports_identical(reps["pallas"], reps["dense"])

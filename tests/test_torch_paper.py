@@ -326,7 +326,7 @@ def test_run_pipeline_on_cpu_end_to_end(tmp_path):
 
 
 def test_run_pipeline_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         harness.run_pipeline(_block_demo(harness), steps=1, eval_shards=2, device="cpu")
     with pytest.raises(ValueError, match="block-conv border"):
         harness.run_pipeline(harness.demo_config(), steps=1, conv_exec="pallas",
@@ -461,7 +461,7 @@ def test_eval_map_ckpt_dir_then_checkpoint(tmp_path, monkeypatch, capsys):
     assert again["map"] == res["stages"]["qat"]["map"]
     assert again["per_class_ap"] == res["stages"]["qat"]["per_class_ap"]
     assert again["n_gt"] == res["stages"]["qat"]["n_gt"]
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         eval_map.main(["--checkpoint", str(ckpts), "--shards", "2", "--device", "cpu"])
     assert sorted(os.listdir(work)) == ["BENCH_torch_eval_ckpt.json", "pipe.json"]
     capsys.readouterr()
@@ -469,9 +469,11 @@ def test_eval_map_ckpt_dir_then_checkpoint(tmp_path, monkeypatch, capsys):
 
 def test_eval_map_refuses_what_is_not_ported(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         eval_map.main(["--fast", "--shards", "2", "--device", "cpu"])
-    with pytest.raises(ValueError, match="item 5"):
+    # the COCO loader is ported: a spec naming a missing file raises before
+    # anything is trained or written
+    with pytest.raises(FileNotFoundError, match="x.json"):
         eval_map.main(["--fast", "--dataset", "coco:x.json", "--device", "cpu"])
     assert os.listdir(tmp_path) == []
     assert eval_map.OUT_JSON == "BENCH_torch_eval.json" != "BENCH_eval.json"
@@ -516,11 +518,13 @@ def test_serve_eval_map_gate_fails_on_a_mismatch(smoke_ckpt, monkeypatch, capsys
 
 
 def test_serve_eval_map_flags_refuse_what_is_not_ported(smoke_ckpt, capsys):
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         serve.main(["--arch", "snn-det", "--eval-map", "--eval-shards", "2",
                     "--checkpoint", smoke_ckpt, "--device", "cpu"])
-    with pytest.raises(ValueError, match="item 5"):
-        serve.main(["--arch", "snn-det", "--eval-map", "--dataset", "voc:/data",
+    # the VOC loader is ported: a spec naming a missing directory raises
+    missing = os.path.join(smoke_ckpt, "no_such_voc_dir")
+    with pytest.raises(FileNotFoundError, match="no_such_voc_dir"):
+        serve.main(["--arch", "snn-det", "--eval-map", "--dataset", f"voc:{missing}",
                     "--device", "cpu"])
     # demo weights: the served score, and no parity gate without a checkpoint
     done = serve.main(["--arch", "snn-det", "--eval-map", "--requests", "3",

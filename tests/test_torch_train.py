@@ -26,6 +26,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.core import lif as jlif  # noqa: E402
 from repro.core import pruning as jpruning  # noqa: E402
 from repro.core import quant as jquant  # noqa: E402
+from repro.data import detection_datasets as jdd  # noqa: E402
 from repro.data import synthetic_detection as jsd  # noqa: E402
 from repro.eval import detection_map as jdm  # noqa: E402
 from repro.eval import harness as jh  # noqa: E402
@@ -525,9 +526,16 @@ def test_synthetic_samples_match_pinned_checksums():
 
 
 @pytest.mark.parametrize("spec", ["coco:instances.json", "voc:/data", "imagenet"])
-def test_unported_dataset_specs_raise(spec):
-    with pytest.raises(ValueError, match="item 5"):
+def test_unported_dataset_specs_raise(spec, tmp_path, monkeypatch):
+    """The COCO and VOC specs are ported now: a spec naming no annotations
+    raises what the JAX package raises (the file or directory is missing),
+    and an unknown kind raises its ValueError."""
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises((OSError, ValueError)) as jerr:
+        jdd.parse_dataset_spec(spec)
+    with pytest.raises(type(jerr.value)) as err:
         dd.parse_dataset_spec(spec)
+    assert str(err.value) == str(jerr.value)
 
 
 # ------------------------------------------------------------- evaluation --
@@ -556,7 +564,7 @@ def test_evaluate_detector_sharded_raises():
     cfg = _small_cfg()
     params, bn = sy.init_params(cfg, device="cpu")
     det = harness.compile_eval_detector(cfg, params, bn, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="item 7"):
         harness.evaluate_detector(det, n_images=2, sharded=2)
     r = harness.evaluate_detector(det, n_images=2, batch=1)
     assert r["n_images"] == 2 and r["split"] == "val"
