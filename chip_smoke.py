@@ -135,6 +135,27 @@ k. The committed ANN fixture (``tests/fixtures/ann_detector``, 96×160, 3 CSP
    executor; the fused kernel's ms per ``detect()`` beside its bound; peak
    memory.
 
+LM token serving (``repro_torch.serve.Engine`` over ``LMEngineCore``), no
+hand-written kernel on its path:
+
+l. qwen1.5-0.5b (16 requests) and olmoe-1b-7b (8 requests) at their
+   published widths in bf16, seeded weights drawn on the card, through
+   ``Engine(n_slots=8, max_seq=512)``, 32 new tokens a request, prompts of
+   3–200 tokens so prefill buckets 16 to 256 all occur (after a warm-up
+   request per bucket): tokens/s over the run, prefill device ms per
+   bucket and decode-step device and host ms (CUDA events), one steady
+   8-slot decode step's kernel time (``torch.profiler``) over its wall
+   time (the busy share), peak memory; for the MoE the entries dropped at
+   capacity in its largest prefill bucket. The card against the port's CPU
+   run at ``smoke_config`` of qwen1.5-0.5b, olmoe-1b-7b and
+   deepseek-moe-16b (f32, TF32 off), and 8 requests served in 8 slots
+   against each served alone (qwen1.5-0.5b full width, f32): logits within
+   4e-3 of the largest |logit| at every step and tokens equal, up to the
+   first step whose top-2 margin is below that bound (reported). The
+   launch counts, set to 0 before the phase, read 0 after it. The serve
+   CLI (``--arch qwen1.5-0.5b --requests 8``) prints its tokens/s line, and
+   ``--arch rwkv6-3b`` exits non-zero naming ROADMAP queue 1 item 9c.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error and times.
 """
@@ -1668,6 +1689,372 @@ def phase_conversion(dev, tag) -> dict:
     return out
 
 
+
+# phase l: LM token serving at full width, bf16 (qwen1.5-0.5b: 16 requests;
+# olmoe-1b-7b: 8), 8 slots of 512 cache rows, 32 new tokens a request
+LM_SERVE = (("qwen1.5-0.5b", 16), ("olmoe-1b-7b", 8))
+LM_SLOTS, LM_MAX_SEQ, LM_NEW = 8, 512, 32
+LM_BUCKETS = (16, 32, 64, 128, 256)  # prompts of 3..200 tokens reach each
+LM_PARITY = ("qwen1.5-0.5b", "olmoe-1b-7b", "deepseek-moe-16b")  # at smoke_config
+LM_SOLO_REQUESTS = 8  # batched vs solo, qwen1.5-0.5b full width f32
+LM_RUNS = 2  # measured runs of the same requests per model
+# tests/test_torch_lm.py's bound for paths through the bf16 KV cache: max
+# |Δ| of logits within 4e-3 of the largest |logit|
+LM_LOGITS_TOL = 4e-3
+
+
+def lm_prompt_lengths(rng, n: int) -> list:
+    """n prompt lengths over 3..200: one in each bucket's range (b/2, b],
+    then uniform, shuffled — every bucket 16..256 occurs."""
+    out = [int(rng.integers(max(3, b // 2 + 1), min(b, 200) + 1)) for b in LM_BUCKETS]
+    out += [int(rng.integers(3, 201)) for _ in range(n - len(out))]
+    rng.shuffle(out)
+    return out
+
+
+def lm_requests(rng, cfg, lengths, max_new: int) -> list:
+    from repro_torch.serve import Request
+
+    return [Request(rid=r, prompt=[int(t) for t in rng.integers(1, cfg.vocab_size, n)],
+                    max_new_tokens=max_new) for r, n in enumerate(lengths)]
+
+
+def lm_logits_recorder(core) -> dict:
+    """Wrap an ``LMEngineCore`` so each request's logits (its prefill's, then
+    one row per decode step it took part in) land on the host, by rid."""
+    rec, cur = {}, {}
+    admit, step, decode, prefill_fn = core.admit, core.step, core._decode, core._prefill_fn
+
+    def pre(length):
+        fn = prefill_fn(length)
+
+        def call(*a, **k):
+            out = fn(*a, **k)
+            rec.setdefault(cur["rid"], []).append(out[0][0].float().cpu())
+            return out
+
+        return call
+
+    def adm(req, i):
+        cur["rid"] = req.rid
+        admit(req, i)
+
+    def dec(*a):
+        out = decode(*a)
+        cur["logits"] = out[0]
+        return out
+
+    def stp(active):
+        finished = step(active)
+        lg = cur["logits"].float().cpu()
+        for i, req in active.items():
+            rec[req.rid].append(lg[i])
+        return finished
+
+    core.admit, core._prefill_fn, core.step, core._decode = adm, pre, stp, dec
+    return rec
+
+
+def lm_compare(got: dict, want: dict, got_out: dict, want_out: dict) -> dict:
+    """Two runs' logits and tokens, request by request. Tokens are compared
+    up to the first step whose top-2 margin (in the reference run) is below
+    the tolerance, logits up to and including it; that step is reported."""
+    worst, low_margin = 0.0, {}
+    for rid, rows in want.items():
+        scale = max(float(r.abs().max()) for r in rows)
+        bound = LM_LOGITS_TOL * scale
+        for k, (a, b) in enumerate(zip(got[rid], rows)):
+            err = float((a - b).abs().max())
+            worst = max(worst, err / scale)
+            if err > bound:
+                raise AssertionError(f"request {rid} step {k}: max |Δ logits| {err} > {bound}")
+            top2 = torch.topk(b, 2).values
+            if float(top2[0] - top2[1]) < bound:
+                low_margin[rid] = k
+                break
+            if got_out[rid][k] != want_out[rid][k]:
+                raise AssertionError(f"request {rid} step {k}: token {got_out[rid][k]} != "
+                                     f"{want_out[rid][k]} at a margin above the tolerance")
+        else:
+            if got_out[rid] != want_out[rid]:
+                raise AssertionError(f"request {rid}: tokens differ")
+    return {"max_rel_err": worst, "tol": LM_LOGITS_TOL,
+            "first_low_margin_step": low_margin or None,
+            "tokens_equal": all(got_out[r] == want_out[r] for r in want_out)}
+
+
+def lm_serve_run(dev, arch: str, n_requests: int, tag) -> dict:
+    """One full-width bf16 model served by ``Engine``: tokens/s over the run,
+    prefill device ms per bucket and decode-step device/host ms by CUDA
+    events, the busy share of a steady 8-slot decode step (``torch.profiler``
+    kernel time over the step's wall time), peak memory while serving (and
+    while drawing the weights); for an MoE the capacity overflow of its
+    largest prefill bucket."""
+    import copy
+
+    from repro_torch.benchmarks import serve_bench
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, zoo
+    from repro_torch.serve import Engine
+
+    cfg = get_config(arch)
+    api = zoo.get_api(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rng = np.random.default_rng(SEED + 20)
+    eng = Engine(cfg, params, n_slots=LM_SLOTS, max_seq=LM_MAX_SEQ)
+    core = eng.core
+    # warm-up: one request per bucket, 2 tokens each (first-call library set-up)
+    for r in lm_requests(rng, cfg, [b for b in LM_BUCKETS], 2):
+        eng.submit(r)
+    eng.run()
+    eng.finished.clear()
+    lengths = lm_prompt_lengths(rng, n_requests)
+    reqs = lm_requests(rng, cfg, lengths, LM_NEW)
+
+    prefill_ev, decode_ev, step_rows = [], [], []
+    prefill_fn, decode, step = core._prefill_fn, core._decode, core.step
+
+    def timed_prefill(length):
+        fn = prefill_fn(length)
+
+        def call(*a, **k):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = fn(*a, **k)
+            e1.record()
+            prefill_ev.append((length, e0, e1))
+            return out
+
+        return call
+
+    def timed_decode(*a):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = decode(*a)
+        e1.record()
+        decode_ev.append((e0, e1))
+        return out
+
+    def timed_step(active):
+        t = time.perf_counter()
+        finished = step(active)  # ends in a .tolist(): synchronised
+        step_rows.append((len(active), (time.perf_counter() - t) * 1e3))
+        return finished
+
+    dispatched, admitting = [], {}
+    real_dispatch, admit = moe.dispatch_group, core.admit
+
+    def recording_dispatch(ids, n_tokens, cfg_):
+        out = real_dispatch(ids, n_tokens, cfg_)
+        dispatched.append((n_tokens, out[1], out[2], admitting.get("plen")))
+        return out
+
+    def recording_admit(req, i):  # marks the prefill's prompt rows
+        admitting["plen"] = len(req.prompt)
+        try:
+            admit(req, i)
+        finally:
+            admitting.clear()
+
+    runs = []  # the same requests served LM_RUNS times: the spread
+    core._prefill_fn, core._decode, core.step = timed_prefill, timed_decode, timed_step
+    core.admit = recording_admit
+    moe.dispatch_group = recording_dispatch
+    try:
+        for _ in range(LM_RUNS):
+            step_rows.clear()
+            decode_ev.clear()
+            dispatched.clear()
+            eng.finished.clear()
+            for r in copy.deepcopy(reqs):
+                if not eng.submit(r):
+                    raise AssertionError(f"request {r.rid} refused")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            done = eng.run()
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            if done.status != "drained" or len(done) != n_requests:
+                raise AssertionError(f"{arch}: served {len(done)} of {n_requests}: "
+                                     f"{done.status}")
+            for r in done:
+                if len(r.out) != LM_NEW or not all(0 <= t < cfg.vocab_size for t in r.out):
+                    raise AssertionError(f"{arch}: request {r.rid} gave {len(r.out)} tokens")
+            tokens = sum(len(r.out) for r in done)
+            full = [ms for (n, ms) in step_rows if n == LM_SLOTS]
+            full_dev = [e0.elapsed_time(e1) for (e0, e1), (n, _) in zip(decode_ev, step_rows)
+                        if n == LM_SLOTS]
+            runs.append({"run_s": run_s, "tokens": tokens, "tokens_per_s": tokens / run_s,
+                         "decode_steps": len(step_rows), "decode_steps_8_active": len(full),
+                         "decode_step_host_ms_p50_8_active": statistics.median(full),
+                         "decode_step_device_ms_p50_8_active": statistics.median(full_dev)})
+    finally:
+        core._prefill_fn, core._decode, core.step, core.admit = prefill_fn, decode, step, admit
+        moe.dispatch_group = real_dispatch
+    peak = torch.cuda.max_memory_allocated()
+    per_bucket = {}
+    for length, e0, e1 in prefill_ev:
+        per_bucket.setdefault(length, []).append(e0.elapsed_time(e1))
+    if sorted(per_bucket) != list(LM_BUCKETS):
+        raise AssertionError(f"{arch}: prefill buckets {sorted(per_bucket)}")
+
+    # one steady 8-slot decode step: its wall ms (synchronised) and its
+    # kernels by torch.profiler. (A step issues hundreds of launches, which
+    # need not fit the launch queue behind a spin kernel as device_ms
+    # needs: the profiler's kernel times are its busy time.)
+    toks = torch.tensor([r.out[-1] for r in done[:LM_SLOTS]], device=dev)
+    pos = torch.full((LM_SLOTS,), LM_MAX_SEQ // 2, dtype=torch.int64, device=dev)
+
+    def one_step():
+        logits, _ = api.decode_fn(params, core.cache, toks, pos)
+        return torch.argmax(logits, dim=-1)
+
+    walls = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        one_step().tolist()
+        walls.append((time.perf_counter() - t) * 1e3)
+    wall_ms = statistics.median(walls)
+    by_kernel = serve_bench.kernel_breakdown(one_step, dev)
+    out = {"arch": arch, "dtype": cfg.dtype, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_params": cfg.n_params(), "init_s": init_s, "requests": n_requests,
+           "slots": LM_SLOTS, "max_seq": LM_MAX_SEQ, "new_tokens": LM_NEW,
+           "prompt_lengths": lengths, **runs[0], "runs": runs,
+           "prefill_device_ms_by_bucket": {str(b): v for b, v in sorted(per_bucket.items())},
+           "prefill_device_ms_median_by_bucket": {str(b): statistics.median(v)
+                                                  for b, v in sorted(per_bucket.items())},
+           "decode_step_wall_ms": wall_ms,
+           "decode_step_kernel_ms": None if by_kernel is None else by_kernel["total_ms"],
+           "decode_step_kernel_launches": None if by_kernel is None
+           else by_kernel["kernel_launches"],
+           "decode_step_busy_share": None if by_kernel is None
+           else by_kernel["total_ms"] / wall_ms,
+           "decode_step_top_kernels": None if by_kernel is None else by_kernel["kernels"][:8],
+           "init_peak_memory_gib": init_peak / 2**30, "peak_memory_gib": peak / 2**30}
+    if cfg.family == "moe":
+        # each prefill of the largest bucket, layer by layer: the entries
+        # dropped at capacity, from the prompt's rows and from the pad rows
+        largest = max(n for n, _, _, plen in dispatched if plen is not None)
+        rows = [(es, c, plen) for n, es, c, plen in dispatched
+                if n == largest and plen is not None]
+        out["largest_prefill_bucket"] = {
+            "tokens": largest, "capacity": rows[0][1], "entries_per_layer": largest * cfg.top_k,
+            "prompt_lengths": sorted({plen for _, _, plen in rows}),
+            "overflow_prompt_rows_per_layer": [int((es[:plen] < 0).sum()) for es, _, plen in rows],
+            "overflow_pad_rows_per_layer": [int((es[plen:] < 0).sum()) for es, _, plen in rows],
+            "overflow_total": sum(int((es < 0).sum()) for es, _, _ in rows)}
+    print(json.dumps({"phase": "lm_serve", **out, **tag}), flush=True)
+    del eng, core, params
+    return out
+
+
+def lm_engine_run(cfg, params, reqs, *, n_slots: int, max_seq: int):
+    from repro_torch.serve import Engine
+
+    eng = Engine(cfg, params, n_slots=n_slots, max_seq=max_seq)
+    rec = lm_logits_recorder(eng.core)
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run()
+    if done.status != "drained" or len(done) != len(reqs):
+        raise AssertionError(f"served {len(done)} of {len(reqs)}: {done.status}")
+    return rec, {r.rid: r.out for r in done}
+
+
+def phase_lm(dev, tag) -> dict:
+    """(l) LM token serving on the card: qwen1.5-0.5b and olmoe-1b-7b at
+    full width in bf16 through ``Engine``; the card against the port's CPU
+    run at the smoke configs; a request served among 8 slots against the
+    same request served alone (qwen1.5-0.5b full width, f32); the serve
+    CLI. No hand-written kernel runs on this path: the launch counts are set
+    to 0 before the phase and must read 0 after it."""
+    import copy
+
+    from repro_torch import backend
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import snn_yolo as sy
+    from repro_torch.models import zoo
+
+    backend.reset_launches()
+    out = {"serve": {}}
+    for arch, n in LM_SERVE:
+        out["serve"][arch] = lm_serve_run(dev, arch, n, tag)
+    torch.cuda.empty_cache()
+
+    # the card against the CPU at smoke_config, f32, TF32 off
+    out["card_vs_cpu"] = {}
+    with sy._no_tf32():
+        for arch in LM_PARITY:
+            cfg = smoke_config(get_config(arch))
+            cpu_params = zoo.get_api(cfg).init_params(SEED, device="cpu")
+            card_params = tu.tree_map(lambda x: x.to(dev), cpu_params)
+            rng = np.random.default_rng(SEED + 21)
+            reqs = lm_requests(rng, cfg, [int(rng.integers(3, 41)) for _ in range(7)], 8)
+            runs = [lm_engine_run(cfg, p, copy.deepcopy(reqs), n_slots=4, max_seq=96)
+                    for p in (cpu_params, card_params)]
+            row = {"arch": arch, "requests": len(reqs), "slots": 4,
+                   **lm_compare(runs[1][0], runs[0][0], runs[1][1], runs[0][1])}
+            out["card_vs_cpu"][arch] = row
+            print(json.dumps({"phase": "lm_card_vs_cpu", **row, **tag}), flush=True)
+
+        # batched (8 slots) against solo, full width f32
+        cfg = dataclasses.replace(get_config("qwen1.5-0.5b"), dtype="float32")
+        params = zoo.get_api(cfg).init_params(SEED, device=dev)
+        rng = np.random.default_rng(SEED + 22)
+        reqs = lm_requests(rng, cfg, lm_prompt_lengths(rng, LM_SOLO_REQUESTS), LM_NEW)
+        batched = lm_engine_run(cfg, params, copy.deepcopy(reqs), n_slots=LM_SLOTS,
+                                max_seq=LM_MAX_SEQ)
+        solo_rec, solo_out = {}, {}
+        for r in reqs:
+            rec, o = lm_engine_run(cfg, params, [copy.deepcopy(r)], n_slots=1,
+                                   max_seq=LM_MAX_SEQ)
+            solo_rec.update(rec)
+            solo_out.update(o)
+        row = {"arch": cfg.arch_id, "dtype": cfg.dtype, "requests": len(reqs),
+               "slots": LM_SLOTS, "steps_per_request": LM_NEW,
+               **lm_compare(batched[0], solo_rec, batched[1], solo_out)}
+        out["batched_vs_solo"] = row
+        print(json.dumps({"phase": "lm_batched_vs_solo", **row, **tag}), flush=True)
+        del params
+    torch.cuda.synchronize()
+    launches = sum(backend.launches.values())
+    print(json.dumps({"phase": "lm_kernel_launches", "hand_written_kernel_launches": launches,
+                      "by_kernel": dict(backend.launches), **tag}), flush=True)
+    if launches:
+        raise AssertionError(f"LM serving launched hand-written kernels: {dict(backend.launches)}")
+    out["kernel_launches"] = launches
+
+    # the CLI: qwen1.5-0.5b at its smoke config, and a family not ported yet
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
+    env = {**os.environ, "PYTHONPATH": src}
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                          "qwen1.5-0.5b", "--requests", "8"], env=env, capture_output=True,
+                         text=True, timeout=600)
+    line = next((ln for ln in cli.stdout.splitlines() if "tok/s" in ln), None)
+    if cli.returncode != 0 or line is None:
+        raise AssertionError(f"the serve CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
+    refused = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+                              "rwkv6-3b"], env=env, capture_output=True, text=True, timeout=600)
+    if refused.returncode == 0 or "ROADMAP.md queue 1 item 9c" not in refused.stderr:
+        raise AssertionError(f"--arch rwkv6-3b exited {refused.returncode}: "
+                             f"{refused.stderr[-2000:]}")
+    out["cli"] = {"line": line, "seconds": time.perf_counter() - t0,
+                  "rwkv6_rc": refused.returncode,
+                  "rwkv6_error": refused.stderr.strip().splitlines()[-1]}
+    print(json.dumps({"phase": "lm_cli", **out["cli"], **tag}), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card",
@@ -1915,6 +2302,12 @@ def main() -> int:
     conversion = phase_conversion(dev, tag)
     print(json.dumps({"phase": "elapsed", "after": "k", "s": time.perf_counter() - t_start}),
           flush=True)
+
+    # ---------------------------------------------------- l. LM token serving
+    torch.cuda.empty_cache()
+    lm = phase_lm(dev, tag)
+    print(json.dumps({"phase": "elapsed", "after": "l", "s": time.perf_counter() - t_start}),
+          flush=True)
     train_launches = trained["train"]["kernel_launches"]
     bl, el = benches["bench_launches"], benches["e2e_launches"]
     lif0, mm0 = lif["rows"][0], mm["rows"][0]  # kernel_bench's own shapes
@@ -1954,6 +2347,7 @@ def main() -> int:
         "launches_train_steps": train_launches.get("fused_pipeline", 0),
         "launches_serving_trained_weights": trained["served"]["launches"],
         "launches_pipeline": pipeline["launches"].get("fused_pipeline", 0),
+        "launches_lm_serving": lm["kernel_launches"],
         "launches_pipeline_per_detect": pipeline["fused_launches_per_detect"],
         "pipeline_uniform_t3_ms": pipeline["uniform_t3_kernel_ms"],
         "pipeline_uniform_t3_plain_ms": pipeline["uniform_t3_plain_ms"],
@@ -2002,6 +2396,7 @@ def main() -> int:
         "launches_kernel_bench": bl["gated_one_to_all"],
         "launches_train_steps": train_launches.get("gated_one_to_all", 0),
         "launches_pipeline": pipeline["launches"].get("gated_one_to_all", 0),
+        "launches_lm_serving": lm["kernel_launches"],
     }, {
         "name": "fused_lif",
         "route": "cuda",
@@ -2022,6 +2417,7 @@ def main() -> int:
                    for r in lif["rows"]],
         "launches_train_steps": train_launches.get("spike_lif", 0),
         "launches_pipeline": pipeline["launches"].get("spike_lif", 0),
+        "launches_lm_serving": lm["kernel_launches"],
     }, {
         "name": "bitmask_matmul",
         "route": "cuda",
@@ -2045,6 +2441,7 @@ def main() -> int:
         "smem_bytes": sorted({r["plan"]["smem_bytes"] for r in mm["rows"]}),
         "launches_train_steps": train_launches.get("bitmask_matmul", 0),
         "launches_pipeline": pipeline["launches"].get("bitmask_matmul", 0),
+        "launches_lm_serving": lm["kernel_launches"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

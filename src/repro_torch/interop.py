@@ -90,3 +90,38 @@ def tree_to_numpy(tree):
     tensor copied to a host numpy array; the containers keep their types."""
     return tu.tree_map(lambda x: x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
                        else np.asarray(x), tree)
+
+
+def lm_params_from_numpy(tree, cfg, *, device=None) -> dict:
+    """The params tree of the JAX package's ``zoo.get_api(cfg).init_params``
+    with numpy leaves (f32, or ml_dtypes bf16) → the port's, on ``device``
+    (default: the card), each leaf in the dtype the port's own init gives
+    it: f32 for the MoE router, ``cfg.param_dtype`` elsewhere. A bf16 leaf
+    that crossed as f32 comes back exactly."""
+    dev = resolve_device(device)
+
+    def leaf(keys, a):
+        want = torch.float32 if keys[-1][1] == "router" else cfg.param_dtype
+        return _tensor(a, dev).to(want)
+
+    if not isinstance(tree.get("layers"), dict):
+        raise ValueError("the port's layers are stacked (L, ...): want params['layers'] "
+                         "as a dict of stacked leaves (scan_layers=True)")
+    return tu.map_with_keys(leaf, tree)
+
+
+def lm_cache_from_numpy(cache_np, *, device=None):
+    """A JAX ``KVCache`` or ``QuantKVCache`` with numpy leaves → the port's,
+    on ``device`` (default: the card), each leaf in its own dtype (bf16
+    carried bit for bit)."""
+    from repro_torch.models import transformer as tfm
+
+    dev = resolve_device(device)
+    kind = tfm.QuantKVCache if len(cache_np) == 4 else tfm.KVCache
+    return kind(*(_tensor(a, dev) for a in cache_np))
+
+
+def lm_cache_to_numpy(cache) -> tuple:
+    """The port's ``KVCache`` / ``QuantKVCache`` as a tuple of host numpy
+    arrays, bf16 widened to f32 (exact)."""
+    return tuple((x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy() for x in cache)

@@ -1,18 +1,30 @@
-"""Serving launcher for the detector: frame streams through the Engine's
-continuous batching over a slot pool, with the compile-once detector and
-its membranes resident on the device. Counterpart of the snn-det half of
-``repro/launch/serve.py`` (the LM architectures are ROADMAP queue 1
-items 7 and 9; ``--dataset`` takes ``synthetic``, ``coco:<instances.json>``
-or ``voc:<dir>``; ``--eval-shards`` 1 only, item 7).
+"""Serving launcher: ``--arch`` picks the architecture, and the Engine's
+continuous batching over a fixed slot pool serves both workloads. The
+counterpart of ``repro/launch/serve.py``.
 
-``--eval-map`` serves the val split, one frame per request, and scores the
-served detections (mAP@0.5). With ``--checkpoint`` the detector is built
-with the evaluation postprocess settings and the score must equal
-``harness.evaluate_detector`` on the same weights bit for bit: the run
-prints the parity line and exits non-zero on a mismatch. A finite
-dataset with fewer val images than ``--requests`` serves all of them.
+* LM token requests (``--arch`` one of the dense or moe LM configs): the
+  port's seeded weights (``zoo.get_api(cfg).init_params(0)``, a
+  ``torch.Generator`` — not the JAX package's ``PRNGKey(0)`` weights),
+  ``--requests`` prompts of 3–31 tokens from ``np.random.default_rng(0)``
+  as in JAX, greedy decoding of ``--max-new`` tokens each over ``--slots``
+  slots of ``--max-seq`` cache rows; prints the tokens/s line. The smoke
+  config unless ``--full-config``. The ssm, hybrid, vlm and audio families
+  raise ``NotImplementedError`` (ROADMAP.md queue 1 item 9c).
+* snn-det frame streams: the compile-once detector with its membranes
+  resident on the device (``--dataset`` takes ``synthetic``,
+  ``coco:<instances.json>`` or ``voc:<dir>``; ``--eval-shards`` 1 only,
+  ROADMAP item 7). ``--eval-map`` serves the val split, one frame per
+  request, and scores the served detections (mAP@0.5). With
+  ``--checkpoint`` the detector is built with the evaluation postprocess
+  settings and the score must equal ``harness.evaluate_detector`` on the
+  same weights bit for bit: the run prints the parity line and exits
+  non-zero on a mismatch. A finite dataset with fewer val images than
+  ``--requests`` serves all of them.
 
 Usage:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+      [--requests 8 --slots 4 --max-new 16 --max-seq 128] [--full-config] \\
+      [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch snn-det \\
       --requests 8 --slots 4 --frames 3 [--conv-exec pallas|gated|dense] \\
       [--max-queue 16 --on-full reject|shed-oldest] [--full-config] \\
@@ -29,13 +41,15 @@ import time
 
 import numpy as np
 
-from repro_torch.configs.snn_det import CONFIG, smoke_config
+from repro_torch import backend
+from repro_torch.configs import ALL_IDS, get_config, smoke_config
 from repro_torch.data import detection_datasets as dd
 from repro_torch.eval import detection_map as dm
 from repro_torch.eval import harness
 from repro_torch.eval import sharded as se
 from repro_torch.models import snn_yolo as sy
-from repro_torch.serve import AdmissionPolicy, Engine, FrameRequest
+from repro_torch.models import zoo
+from repro_torch.serve import AdmissionPolicy, Engine, FrameRequest, Request
 from repro_torch.serve.detector import demo_weights, step_latency_ms, synth_streams
 
 
@@ -49,6 +63,32 @@ def _report_rejections(eng):
     if eng.rejected:
         print(f"  rejected {len(eng.rejected)} requests at admission "
               f"(rids {[r.rid for r in eng.rejected]})")
+
+
+def _serve_lm(cfg, args):
+    api = zoo.get_api(cfg)
+    params = api.init_params(0, device=args.device)
+    eng = Engine(cfg, params, n_slots=args.slots, max_seq=args.max_seq,
+                 admission=_admission(args))
+    rng = np.random.default_rng(0)
+    for r in range(args.requests):
+        plen = int(rng.integers(3, 32))
+        eng.submit(Request(rid=r, prompt=list(rng.integers(1, cfg.vocab_size, plen)),
+                           max_new_tokens=args.max_new))
+    _report_rejections(eng)
+    t0 = time.time()
+    done = eng.run()
+    backend.synchronize(eng.core.device)
+    dt = time.time() - t0
+    if len(done) != args.requests - len(eng.rejected):
+        raise SystemExit(f"served {len(done)} of {args.requests - len(eng.rejected)} "
+                         f"admitted requests ({done.status})")
+    total = args.max_new * len(done)
+    print(f"{args.arch}: served {len(done)} requests "
+          f"({total} new tokens) in {dt:.1f}s — {total/dt:.1f} tok/s")
+    for r in sorted(done, key=lambda r: r.rid)[:3]:
+        print(f"  req {r.rid}: {r.out}")
+    return done
 
 
 def _serve_detector(cfg, args):
@@ -151,10 +191,14 @@ def _score_served(det, done, gts, source, eng, args):
 def main(argv=None):
     """Parse the command line and serve; returns the finished requests."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", choices=["snn-det"], required=True)
+    ap.add_argument("--arch", choices=list(ALL_IDS), required=True)
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--slots", type=int, default=4)
-    ap.add_argument("--frames", type=int, default=3, help="frames per stream")
+    ap.add_argument("--max-new", type=int, default=16,
+                    help="new tokens per LM request (greedy)")
+    ap.add_argument("--max-seq", type=int, default=128,
+                    help="KV cache rows per slot (LM)")
+    ap.add_argument("--frames", type=int, default=3, help="frames per stream (snn-det)")
     ap.add_argument("--conv-exec", default=None, choices=["dense", "gated", "pallas"],
                     help="conv executor (default: pallas, the kernel executor; with "
                          "--checkpoint the checkpoint's own)")
@@ -180,11 +224,18 @@ def main(argv=None):
     ap.add_argument("--on-full", default="reject", choices=["reject", "shed-oldest"],
                     help="full-queue policy with --max-queue")
     ap.add_argument("--full-config", action="store_true",
-                    help="the paper's 576x1024 config (default: the smoke config)")
+                    help="the published config (snn-det: the paper's 576x1024; an LM: "
+                         "its full width, weights drawn by the port's own seeded init, "
+                         "not the JAX package's PRNGKey(0) weights); default: the "
+                         "smoke config")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    cfg = CONFIG if args.full_config else smoke_config(CONFIG)
-    return _serve_detector(cfg, args)
+    cfg = get_config(args.arch)
+    if not args.full_config:
+        cfg = smoke_config(cfg)
+    if args.arch == "snn-det":
+        return _serve_detector(cfg, args)
+    return _serve_lm(cfg, args)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,253 @@
+"""Dense decoder-only transformer (the qwen / llama backbone) and the
+prefill/decode steps the MoE family reuses with its own layer body.
+Counterpart of ``repro/models/transformer.py``.
+
+Parameters are stacked over layers — every leaf of ``params["layers"]`` is
+(L, ...) — as the JAX package's scanned layers are, so a params tree
+crosses between the packages leaf for leaf
+(:func:`repro_torch.interop.lm_params_from_numpy`).
+
+Two serving paths, as in JAX: :func:`forward` (``serve_fast=False``)
+rebuilds the KV cache per layer, and :func:`cached_forward` (the default)
+writes each layer's new rows into the carried stacked cache in place — the
+PyTorch form of the JAX package's carry-aliased ``fori_loop``.
+"""
+from __future__ import annotations
+
+from typing import Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch import tree as tu
+from repro_torch.configs.base import LMConfig
+from repro_torch.models import layers as L
+
+
+# ------------------------------------------------------------------ params --
+
+
+def layer_init(gen: torch.Generator, cfg: LMConfig) -> dict:
+    return {
+        "attn": L.attn_init(gen, cfg),
+        "mlp": L.mlp_init(gen, cfg),
+        "ln1": torch.ones((cfg.d_model,), dtype=cfg.param_dtype, device=gen.device),
+        "ln2": torch.ones((cfg.d_model,), dtype=cfg.param_dtype, device=gen.device),
+    }
+
+
+def layer_params(layers: dict, i: int) -> dict:
+    """Layer ``i``'s parameters: a view of row i of every stacked leaf."""
+    return tu.tree_map(lambda a: a[i], layers)
+
+
+def init_params(gen: torch.Generator, cfg: LMConfig, layer_init_fn=layer_init) -> dict:
+    """Seeded parameters on ``gen``'s device: the embeddings, then the
+    layers drawn one at a time into their stacked (L, ...) leaves (the peak
+    is the stack plus one layer)."""
+    embed = L.embed_init(gen, cfg)
+    first = layer_init_fn(gen, cfg)
+    stacked = tu.tree_map(lambda a: a.new_empty((cfg.n_layers,) + tuple(a.shape)), first)
+    for i in range(cfg.n_layers):
+        layer = first if i == 0 else layer_init_fn(gen, cfg)
+        for dst, src in zip(tu.leaves(stacked), tu.leaves(layer)):
+            dst[i].copy_(src)
+    return {"embed": embed, "layers": stacked}
+
+
+# ----------------------------------------------------------------- forward --
+
+
+def dense_block(x, lp, cfg: LMConfig, *, positions, kv=None, cache_pos=None):
+    """Pre-norm attention + SwiGLU block. Returns (x, new_kv)."""
+    h, new_kv = L.attention(
+        L.rmsnorm(x, lp["ln1"], cfg.norm_eps),
+        lp["attn"],
+        cfg,
+        positions=positions,
+        kv_cache=kv,
+        cache_pos=cache_pos,
+    )
+    x = x + h
+    x = x + L.mlp(L.rmsnorm(x, lp["ln2"], cfg.norm_eps), lp["mlp"])
+    return x, new_kv
+
+
+class KVCache(NamedTuple):
+    """Stacked over layers: k/v (L, B, S_max, n_kv, hd)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @staticmethod
+    def zeros(cfg: LMConfig, batch: int, max_seq: int, dtype=torch.bfloat16, *, device):
+        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device))
+
+
+def _positions(pos0, b: int, s: int, device) -> torch.Tensor:
+    """(B, S) positions of tokens written from ``pos0`` (an int, or one
+    position per batch row)."""
+    base = pos0[:, None] if L.per_slot(pos0) else int(pos0)
+    return (base + torch.arange(s, device=device)[None]).expand(b, s)
+
+
+def forward(
+    params: dict,
+    tokens: torch.Tensor,
+    cfg: LMConfig,
+    *,
+    block_fn: Callable = dense_block,
+    kv_cache: Optional[KVCache] = None,
+    cache_pos=None,
+    collect_kv: bool = False,
+) -> tuple[torch.Tensor, Optional[KVCache]]:
+    """tokens (B, S) → logits (B, S, V), layer by layer over the stacked
+    params. ``collect_kv``: also return the per-layer K/V (prefill/decode)."""
+    collect_kv = collect_kv or kv_cache is not None
+    x = L.embed_tokens(tokens, params["embed"])
+    b, s, _ = x.shape
+    positions = _positions(cache_pos if cache_pos is not None else 0, b, s, x.device)
+    new_ks, new_vs = [], []
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        kv = L.KVSlice(kv_cache.k[i], kv_cache.v[i]) if kv_cache is not None else None
+        x, new_kv = block_fn(x, lp, cfg, positions=positions, kv=kv, cache_pos=cache_pos)
+        if collect_kv:
+            new_ks.append(new_kv.k)
+            new_vs.append(new_kv.v)
+    new_cache = KVCache(torch.stack(new_ks), torch.stack(new_vs)) if new_ks else None
+    return L.logits_fn(x, params["embed"], cfg), new_cache
+
+
+# ------------------------------------------------------------- step makers --
+
+
+def make_prefill_fn(cfg: LMConfig, block_fn=dense_block):
+    """Prefill: run the prompt, return the last position's logits and the
+    populated KV cache. ``valid_len`` supports bucketed prefill: tokens
+    padded past the real prompt, the causal mask keeps positions <
+    valid_len blind to the pad, and the logits come from position
+    ``valid_len - 1``."""
+
+    def prefill(params, tokens, valid_len=None):
+        logits, cache = forward(params, tokens, cfg, block_fn=block_fn, collect_kv=True)
+        if valid_len is None:
+            return logits[:, -1], cache
+        return logits[:, int(valid_len) - 1], cache
+
+    return prefill
+
+
+def make_decode_fn(cfg: LMConfig, block_fn=dense_block):
+    """One decode step: (params, cache, token, pos) → (logits, cache)."""
+
+    def decode(params, cache, token, pos):
+        logits, new_cache = forward(
+            params, token[:, None], cfg, block_fn=block_fn, kv_cache=cache, cache_pos=pos
+        )
+        return logits[:, 0], new_cache
+
+    return decode
+
+
+# ------------------------------------------------------------ serve path --
+# cached_forward carries the stacked cache and writes each layer's new rows
+# into it in place, so the only cache traffic is the attention read. With
+# ``kv_quant`` the cache is int8 with per-(token, head) scales (the paper's
+# FXP8 applied to the cache), dequantized to bf16 inside the attention read.
+
+
+class QuantKVCache(NamedTuple):
+    """int8 KV + per-(layer, batch, pos, head) f32 scales."""
+
+    k: torch.Tensor  # (L, B, S, kv, hd) int8
+    v: torch.Tensor
+    k_scale: torch.Tensor  # (L, B, S, kv) f32
+    v_scale: torch.Tensor
+
+    @staticmethod
+    def zeros(cfg: LMConfig, batch: int, max_seq: int, *, device):
+        shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.hd)
+        return QuantKVCache(
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(shape, dtype=torch.int8, device=device),
+            torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        )
+
+
+def _q8_kv(x):
+    """(..., hd) → int8 payload + f32 scale over the head dim."""
+    scale = torch.amax(torch.abs(x.float()), dim=-1) / 127.0
+    q = torch.round(x.float() / torch.clamp_min(scale[..., None], 1e-9))
+    return q.to(torch.int8), scale
+
+
+def cached_forward(
+    params: dict,
+    tokens: torch.Tensor,  # (B, S_new): 1 for decode, the prompt for prefill
+    cfg: LMConfig,
+    cache,  # KVCache or QuantKVCache, (L, B, S_max, kv, hd); written in place
+    pos0,  # int, or (B,) tensor: write offset of tokens[:, 0]
+    *,
+    mlp_fn: Optional[Callable] = None,
+    valid_len=None,
+):
+    """Prefill/decode over a carried stacked cache. Returns (last-position
+    logits (B, V), the cache). ``valid_len`` selects position
+    ``valid_len - 1`` instead of the last (bucketed prefill over
+    end-padded tokens — pad rows land in the cache past the prompt, and
+    serving only ever copies rows [:valid_len])."""
+    mlp_fn = mlp_fn or (lambda h, lp: L.mlp(h, lp["mlp"]))
+    quant = isinstance(cache, QuantKVCache)
+    x = L.embed_tokens(tokens, params["embed"])
+    b, s, _ = x.shape
+    dev = x.device
+    slots = L.per_slot(pos0)
+    positions = _positions(pos0, b, s, dev)
+    s_max = cache.k.shape[2]
+    steps = torch.arange(s, device=dev)
+    if slots:  # per-slot offsets (serving)
+        rows = torch.arange(b, device=dev)[:, None]
+        cols = pos0[:, None] + steps[None]
+        off = pos0[:, None, None]
+    else:  # uniform offset
+        p0 = int(pos0)
+        off = p0
+    # visibility: kv position j attends to query step t iff j <= pos0 + t
+    valid = torch.arange(s_max, device=dev)[None, None, :] <= (off + steps[None, :, None])
+
+    def put(buf, i, val):
+        if slots:
+            buf[i, rows, cols] = val.to(buf.dtype)
+        else:
+            buf[i, :, p0:p0 + s] = val.to(buf.dtype)
+
+    for i in range(cfg.n_layers):
+        lp = layer_params(params["layers"], i)
+        h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = L._qkv(h, lp["attn"], cfg, positions)
+        if quant:
+            kq, ks = _q8_kv(k)
+            vq, vs = _q8_kv(v)
+            for buf, val in zip(cache, (kq, vq, ks, vs)):
+                put(buf, i, val)
+            k_l = cache.k[i].to(torch.bfloat16) * cache.k_scale[i][..., None].to(torch.bfloat16)
+            v_l = cache.v[i].to(torch.bfloat16) * cache.v_scale[i][..., None].to(torch.bfloat16)
+        else:
+            put(cache.k, i, k)
+            put(cache.v, i, v)
+            k_l, v_l = cache.k[i], cache.v[i]
+
+        if s == s_max and not slots and s > L.CHUNKED_ATTN_THRESHOLD:
+            # long prefill: the chunked path (exact: prefill starts at 0)
+            att = L._chunked_sdpa(q, k_l, v_l, cfg, causal=True)
+        else:
+            att = L._sdpa(q, k_l, v_l, valid[:, None], cfg)
+        x = x + L._mm(att, lp["attn"]["wo"])
+        x = x + mlp_fn(L.rmsnorm(x, lp["ln2"], cfg.norm_eps), lp)
+
+    x_last = x[:, -1:] if valid_len is None else x[:, int(valid_len) - 1:int(valid_len)]
+    logits = L.logits_fn(x_last, params["embed"], cfg)
+    return logits[:, 0], cache

@@ -1,10 +1,11 @@
 """serve of the PyTorch port (see repro_torch/__init__.py): the JAX
-package's re-exports, less ``LMEngineCore`` (not ported yet)."""
+package's re-exports."""
 from repro_torch.serve.engine import (  # noqa: F401
     AdmissionPolicy,
     Engine,
     EngineAPI,
     EngineRunResult,
+    LMEngineCore,
     Request,
     SubmitResult,
 )

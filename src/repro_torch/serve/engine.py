@@ -1,17 +1,38 @@
 """The serving engine: a slot pool with continuous batching and admission
-control. Counterpart of ``repro/serve/engine.py``, detector side.
+control. Counterpart of ``repro/serve/engine.py``.
 
 :class:`Engine` owns the queue, the slot occupancy and the run loop, and
-leaves the model work to an :class:`EngineAPI` backend. The port's backend
-is :class:`repro_torch.serve.detector.DetectorEngineCore`: slot i is one
-frame stream, and each step advances every active stream by one frame as
-one megabatch. The JAX package's ``LMEngineCore`` (token serving) is not
-ported yet (ROADMAP.md, queue 1).
+leaves the model work to an :class:`EngineAPI` backend:
+
+* :class:`LMEngineCore` — LM token serving (the dense and moe families).
+  One shared KV cache over the pool; each request is prefilled at a
+  bucketed length and its rows copied into its slot; each step decodes one
+  token for every active slot, each at its own cache position.
+* :class:`repro_torch.serve.detector.DetectorEngineCore` — detection
+  serving: slot i is one frame stream, and each step advances every active
+  stream by one frame as one megabatch.
+
+``Engine(cfg, params)`` picks the backend by the config's type (LMConfig
+or SNNDetConfig), so ``launch/serve.py --arch`` drives both workloads
+through one loop.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Any, Optional, Protocol, runtime_checkable
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import LMConfig
+from repro_torch.models import zoo
+
+
+def _bucket(n: int) -> int:
+    b = 16
+    while b < n:
+        b *= 2
+    return b
 
 
 @dataclass
@@ -98,7 +119,103 @@ class EngineAPI(Protocol):
     def step(self, active: dict[int, Any]) -> list[int]: ...
 
 
-def _resolve_core(cfg, params, *, n_slots: int, device=None) -> EngineAPI:
+class LMEngineCore:
+    """EngineAPI backend for LM token serving over one shared KV cache, on
+    the device that holds ``params``. Sampling is greedy (``greedy`` is
+    kept as the JAX package keeps it)."""
+
+    def __init__(self, cfg: LMConfig, params, *, n_slots: int = 8,
+                 max_seq: int = 512, greedy: bool = True):
+        self.cfg = cfg
+        self.api = zoo.get_api(cfg)
+        self.params = params
+        self.device = params["embed"]["tok"].device
+        self.n_slots = n_slots
+        self.max_seq = max_seq
+        self.greedy = greedy
+        self.pos = [0] * n_slots  # next cache write position per slot
+        self.cache = self.api.init_cache(n_slots, max_seq, device=self.device)
+        self._decode = self.api.decode_fn
+        self._prefill_cache = {}
+        # bucketed prefill (pad + valid_len): the causal mask keeps positions
+        # < plen blind to the pad, and _scatter_kv copies only rows [:plen].
+        # An int8 cache keeps exact-length prefill, as in the JAX package.
+        self._bucketed = not cfg.kv_quant
+
+    def validate(self, req: Request) -> Optional[str]:
+        """Why ``req`` cannot be served, or None: its prompt must leave at
+        least one cache row for a decoded token."""
+        if not 0 < len(req.prompt) < self.max_seq:
+            return f"prompt of {len(req.prompt)} tokens; want 1..{self.max_seq - 1}"
+        return None
+
+    # ------------------------------------------------------------ prefill --
+    def _prefill_fn(self, length: int):
+        """The prefill for prompts padded to ``length``: one entry per
+        bucket (or exact length), holding the serve_fast path's scratch
+        cache of that length, reused by every request of the bucket."""
+        if length not in self._prefill_cache:
+            scratch = (self.api.init_cache(1, length, device=self.device)
+                       if self.cfg.serve_fast else None)
+            self._prefill_cache[length] = (
+                lambda params, tokens, valid_len=None, _c=scratch:
+                self.api.prefill_fn(params, tokens, valid_len=valid_len, cache=_c))
+        return self._prefill_cache[length]
+
+    def admit(self, req: Request, slot_idx: int):
+        err = self.validate(req)
+        if err is not None:
+            raise ValueError(f"request {req.rid}: {err}")
+        plen = len(req.prompt)
+        prompt = np.asarray(req.prompt, np.int64)
+        if self._bucketed:
+            blen = _bucket(plen)
+            padded = np.zeros((1, blen), np.int64)
+            padded[0, :plen] = prompt
+            logits, pcache = self._prefill_fn(blen)(
+                self.params, torch.from_numpy(padded).to(self.device), valid_len=plen)
+        else:
+            logits, pcache = self._prefill_fn(plen)(
+                self.params, torch.from_numpy(prompt[None]).to(self.device))
+        req.out.append(int(torch.argmax(logits[0])))
+        self._scatter_kv(pcache, slot_idx, plen)
+        self.pos[slot_idx] = plen
+
+    def _scatter_kv(self, pcache, slot_idx: int, plen: int):
+        """Copy rows [:plen] of the request's prefill cache into its slot of
+        the shared cache (k and v, and an int8 cache's scales)."""
+        for dst, src in zip(self.cache, pcache):
+            dst[:, slot_idx, :plen] = src[:, 0, :plen].to(dst.dtype)
+
+    # ------------------------------------------------------------- decode --
+    def step(self, active: dict[int, Request]) -> list[int]:
+        toks = np.zeros((self.n_slots,), np.int64)
+        pos = np.zeros((self.n_slots,), np.int64)  # idle slots sit at 0
+        for i, req in active.items():
+            toks[i] = req.out[-1]
+            pos[i] = self.pos[i]
+        logits, self.cache = self._decode(
+            self.params, self.cache, torch.from_numpy(toks).to(self.device),
+            torch.from_numpy(pos).to(self.device))
+        nxt = torch.argmax(logits, dim=-1).tolist()
+        finished = []
+        for i, req in active.items():
+            self.pos[i] += 1
+            tok = nxt[i]
+            req.out.append(tok)
+            if (
+                tok == req.eos_id
+                or len(req.out) >= req.max_new_tokens
+                or self.pos[i] + 1 >= self.max_seq
+            ):
+                finished.append(i)
+        return finished
+
+
+def _resolve_core(cfg, params, *, n_slots: int, max_seq: int = 512, greedy: bool = True,
+                  device=None) -> EngineAPI:
+    if isinstance(cfg, LMConfig):  # params already live on their device
+        return LMEngineCore(cfg, params, n_slots=n_slots, max_seq=max_seq, greedy=greedy)
     from repro_torch.models.snn_yolo import SNNDetConfig, compile_detector
     from repro_torch.serve.detector import CompiledDetector, DetectorEngineCore
 
@@ -109,25 +226,29 @@ def _resolve_core(cfg, params, *, n_slots: int, device=None) -> EngineAPI:
         return DetectorEngineCore(compile_detector(cfg, p, bn, device=device),
                                   n_slots=n_slots)
     raise TypeError(
-        f"don't know how to serve {type(cfg).__name__}: pass an SNNDetConfig, a "
-        "CompiledDetector, or an explicit core= (LM serving is not ported yet)"
+        f"don't know how to serve {type(cfg).__name__}: pass an LMConfig, an "
+        "SNNDetConfig, a CompiledDetector, or an explicit core="
     )
 
 
 class Engine:
     """The slot/admission loop over an EngineAPI core.
 
+    ``Engine(cfg, params)`` with an :class:`LMConfig` serves tokens on the
+    device of ``params`` (``n_slots`` slots of ``max_seq`` cache rows).
     ``Engine(det)`` serves a :class:`~repro_torch.serve.detector.
-    CompiledDetector`; ``Engine(cfg, params_or_(params, bn))`` compiles one
-    on ``device`` (default: the card). ``admission`` bounds the queue;
+    CompiledDetector`; ``Engine(cfg, params_or_(params, bn))`` with an
+    SNNDetConfig compiles one on ``device`` (default: the card).
+    ``admission`` bounds the queue;
     ``submit`` returns a :class:`SubmitResult`, ``run`` an
     :class:`EngineRunResult`."""
 
     def __init__(self, cfg=None, params=None, *, n_slots: int = 8,
+                 max_seq: int = 512, greedy: bool = True,
                  core: Optional[EngineAPI] = None,
                  admission: Optional[AdmissionPolicy] = None, device=None):
         self.core = core if core is not None else _resolve_core(
-            cfg, params, n_slots=n_slots, device=device
+            cfg, params, n_slots=n_slots, max_seq=max_seq, greedy=greedy, device=device
         )
         self.cfg = cfg
         self.admission = admission if admission is not None else AdmissionPolicy()

@@ -7,8 +7,9 @@ of a float64 product (f32 sums in another order), its split-K path the
 same from run to run; the megabatched Engine on the card against solo
 session replays; and the ANN→SNN conversion on the card against the CPU's,
 a converted detector's fused launches at T=128 against the plain version,
-and the COCO fixture feeding ``evaluate_detector``. Needs a CUDA device and
-nothing of JAX; skips without a card:
+and the COCO fixture feeding ``evaluate_detector``; LM token serving (the
+smoke configs on the card against the CPU, qwen1.5-0.5b at full width).
+Needs a CUDA device and nothing of JAX; skips without a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 """
@@ -601,3 +602,89 @@ def test_coco_source_feeds_evaluate_detector_on_the_card(cuda):
         reps[ex] = harness.evaluate_detector(det, n_images=48, source=source)
     assert reps["pallas"]["n_images"] == 4
     assert se.reports_identical(reps["pallas"], reps["dense"])
+
+
+# ---------------------------------------------------------- LM serving --
+# No hand-written kernel is on this path; the card runs PyTorch's own.
+LM_LOGITS_TOL = 4e-3  # tests/test_torch_lm.py's bound through the bf16 KV cache
+
+
+def _lm_serve(cfg, params, prompts, *, n_slots, max_new):
+    """Serve ``prompts`` through ``Engine``; (outputs by rid, every logits
+    call's rows on the host, in call order)."""
+    from repro_torch.serve import Request
+
+    eng = Engine(cfg, params, n_slots=n_slots, max_seq=96)
+    calls = []
+    decode, prefill_fn = eng.core._decode, eng.core._prefill_fn
+
+    def dec(*a):
+        out = decode(*a)
+        calls.append(out[0].float().cpu())
+        return out
+
+    def pre(length):
+        fn = prefill_fn(length)
+        return lambda *a, **k: (lambda out: calls.append(out[0].float().cpu()) or out)(
+            fn(*a, **k))
+
+    eng.core._decode, eng.core._prefill_fn = dec, pre
+    for r, p in enumerate(prompts):
+        assert eng.submit(Request(rid=r, prompt=p, max_new_tokens=max_new))
+    done = eng.run()
+    assert done.status == "drained" and len(done) == len(prompts)
+    return {r.rid: r.out for r in done}, calls
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "olmoe-1b-7b", "deepseek-moe-16b"])
+def test_lm_engine_on_the_card_equals_cpu(cuda, arch):
+    """``Engine`` at the smoke config (f32, TF32 off) on the card and on the
+    CPU from the same params: every logits call within 4e-3 of the largest
+    |logit|, the greedy streams equal (no step of these inputs has a top-2
+    margin below that bound), no hand-written kernel launched."""
+    from repro_torch import backend
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.configs import smoke_config as lm_smoke
+    from repro_torch.models import zoo
+
+    cfg = lm_smoke(get_config(arch))
+    params = zoo.get_api(cfg).init_params(0, device="cpu")
+    rng = np.random.default_rng(21)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, int(rng.integers(3, 41)))]
+               for _ in range(6)]
+    before = sum(backend.launches.values())
+    with sy._no_tf32():
+        cpu_out, cpu_calls = _lm_serve(cfg, params, prompts, n_slots=4, max_new=8)
+        card_out, card_calls = _lm_serve(cfg, tu.tree_map(lambda x: x.to(cuda), params),
+                                         prompts, n_slots=4, max_new=8)
+    torch.cuda.synchronize()
+    assert sum(backend.launches.values()) == before
+    assert len(card_calls) == len(cpu_calls)
+    for a, b in zip(card_calls, cpu_calls):
+        assert float((a - b).abs().max()) <= LM_LOGITS_TOL * float(b.abs().max())
+    assert card_out == cpu_out
+
+
+@pytest.mark.gpu
+def test_lm_engine_full_width_on_the_card(cuda):
+    """qwen1.5-0.5b at its published width in bf16: 4 requests through an
+    8-slot Engine drain with finite logits and tokens in the vocabulary,
+    prefill keyed by bucket, no hand-written kernel launched."""
+    from repro_torch import backend
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+
+    cfg = get_config("qwen1.5-0.5b")
+    params = zoo.get_api(cfg).init_params(0, device=cuda)
+    assert params["embed"]["tok"].dtype == torch.bfloat16
+    rng = np.random.default_rng(22)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, n)] for n in (5, 20, 40, 70)]
+    before = sum(backend.launches.values())
+    out, calls = _lm_serve(cfg, params, prompts, n_slots=8, max_new=8)
+    torch.cuda.synchronize()
+    assert sum(backend.launches.values()) == before
+    assert all(len(o) == 8 and all(0 <= t < cfg.vocab_size for t in o) for o in out.values())
+    assert all(bool(torch.isfinite(c).all()) for c in calls)
+    assert len(calls) == 4 + 7  # one prefill per request, 7 decode steps of all 4 together

@@ -237,7 +237,12 @@ def test_import_leaves_jax_out():
         "repro_torch.benchmarks.table3_hw, repro_torch.benchmarks.fig3_density, "
         "repro_torch.benchmarks.fig5_miout, repro_torch.benchmarks.fig6_parallelism, "
         "repro_torch.benchmarks.fig15_mixed_t, repro_torch.benchmarks.fig17_dram, "
-        "repro_torch.benchmarks.run\n"
+        "repro_torch.benchmarks.run, repro_torch.configs, repro_torch.configs.base, "
+        "repro_torch.models.layers, repro_torch.models.transformer, repro_torch.models.moe, "
+        "repro_torch.models.zoo\n"
+        "from repro_torch.configs import ALL_IDS, get_config\n"
+        "[get_config(a) for a in ALL_IDS]\n"
+        "from repro_torch.serve import LMEngineCore\n"
         "from repro_torch.core.quant import int8_conv_accumulate, acc_range_ok, "
         "conv_acc_worst_case, ACC_BITS\n"
         "from repro_torch.core.miout import miout, choose_schedule, schedule_ops, "
