@@ -156,12 +156,34 @@ l. qwen1.5-0.5b (16 requests) and olmoe-1b-7b (8 requests) at their
    CLI (``--arch qwen1.5-0.5b --requests 8``) prints its tokens/s line, and
    ``--arch rwkv6-3b`` exits non-zero naming ROADMAP queue 1 item 9c.
 
+LM training (``repro_torch.train.trainer``, ``repro_torch.launch.train``),
+no hand-written kernel on its path:
+
+m. One ``make_train_step`` step of qwen1.5-0.5b and olmoe-1b-7b at
+   ``smoke_config`` (f32, TF32 off) on the card and on the CPU from the same
+   seeded parameters and ``lm_data.batch_at`` batch, with 1 and 2
+   microbatches and once with int8 gradient compression and int8 moments:
+   loss, gradient norm, gradients and new parameters within
+   ``tests/test_torch_lm_train.py``'s bounds. Then ``launch.train.main`` at
+   full width in bf16 with remat: qwen1.5-0.5b at seq 4096, batch 8 in 4
+   microbatches, 20 steps; olmoe-1b-7b at seq 2048, batch 4 in 2
+   microbatches, int8 moments (each run's cuts on its line): the step time
+   by CUDA events (median after the first step), tokens/s, peak memory and
+   the state's bytes by part, one step's kernel time and launches by
+   ``torch.profiler`` (its busy share), the first and last loss (the
+   launcher's own gate: the loss falls), and for the MoE the entries
+   dropped at capacity in layer 0. A ``--ckpt`` run of qwen1.5-0.5b at full
+   width, resumed by a second invocation: the restored state bit-equal to
+   the first run's final state, the step count continuing. The launch
+   counts, set to 0 before the phase, read 0 after it.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error and times.
 """
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -2055,6 +2077,280 @@ def phase_lm(dev, tag) -> dict:
     return out
 
 
+# ------------------------------------------------------------ m. LM training
+
+# card vs CPU at smoke_config: (n_microbatch, grad_compress, int8_moments)
+LM_TRAIN_PARITY = ((1, False, False), (2, False, False), (1, True, True))
+LM_TRAIN_PARITY_BATCH, LM_TRAIN_PARITY_SEQ = 8, 32
+# tests/test_torch_lm_train.py's bounds: loss and gradient norm relative,
+# gradients × the leaf's largest |g|, parameters × the leaf's largest |p| where
+# the applied |ĝ| ≥ 100·eps (R6; 1e4·eps for a leaf that starts at 0, R8),
+# within 2·lr elsewhere
+LM_TRAIN_TOL = {"loss_rtol": 1e-5, "grad_norm_rtol": 1e-5, "grad_tol": 1e-5,
+                "state_rtol": 1e-6}
+# full width through launch.train.main; the train_4k global batch of 256 cut
+# to these, qwen at train_4k's sequence length, olmoe's cut from 4096 to 2048
+LM_TRAIN = (
+    ("qwen1.5-0.5b", ["--seq", "4096", "--batch", "8", "--microbatch", "4", "--steps", "20"],
+     "train_4k global batch 256 -> 8 (2 per microbatch), 20 steps"),
+    ("olmoe-1b-7b", ["--seq", "2048", "--batch", "4", "--microbatch", "2", "--steps", "12",
+                     "--int8-moments"],
+     "train_4k global batch 256 -> 4 (2 per microbatch), seq 4096 -> 2048, 12 steps"),
+)
+LM_TRAIN_PROFILE_STEP = 2  # the step traced by torch.profiler (not in the event times)
+# the --ckpt run: qwen1.5-0.5b at full width, one invocation of LM_CKPT_STEPS[0]
+# steps, then a second to LM_CKPT_STEPS[1] that resumes from its checkpoint
+LM_CKPT_FLAGS = ["--seq", "1024", "--batch", "8", "--microbatch", "2"]
+LM_CKPT_STEPS = (6, 12)
+
+
+def lm_train_step_both(dev, arch: str, n_mb: int, compress: bool, int8: bool) -> dict:
+    """One ``make_train_step`` step at ``smoke_config`` on the CPU and on
+    the card from the same seeded parameters and ``batch_at`` batch (f32,
+    TF32 off), held to the CPU tests' bounds."""
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.data import lm_data
+    from repro_torch.models import zoo
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+
+    cfg = smoke_config(get_config(arch))
+    api = zoo.get_api(cfg)
+    ocfg = opt.AdamWConfig(warmup_steps=2, total_steps=20, int8_moments=int8)
+    params0 = api.init_params(SEED, device="cpu")
+    b = lm_data.batch_at(0, batch_size=LM_TRAIN_PARITY_BATCH, seq_len=LM_TRAIN_PARITY_SEQ,
+                         vocab=cfg.vocab_size)
+    out = {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        p = tu.tree_map(lambda x: x.to(d, copy=True), params0)
+        batch = {k: torch.from_numpy(v).to(d) for k, v in b.items()}
+        _, grads = trainer.loss_and_grads(api.loss_fn, p, batch, n_microbatch=n_mb)
+        state = trainer.init_train_state(p, ocfg, grad_compress=compress)
+        new, m = trainer.make_train_step(api.loss_fn, ocfg, n_microbatch=n_mb,
+                                         grad_compress=compress)(state, batch)
+        out[name] = {"grads": tu.tree_map(lambda x: x.cpu(), grads),
+                     "params": tu.tree_map(lambda x: x.cpu(), new.params),
+                     "m": {k: v.cpu() for k, v in m.items()}}
+    cpu, crd = out["cpu"], out["card"]
+
+    def rel(k):
+        return abs(float(crd["m"][k]) - float(cpu["m"][k])) / abs(float(cpu["m"][k]))
+
+    grad_err = max(float((a - c).abs().max() / a.abs().max().clamp_min(1e-30))
+                   for a, c in zip(tu.leaves(cpu["grads"]), tu.leaves(crd["grads"])))
+    applied = cpu["grads"]
+    if compress:
+        applied = tu.tree_map(lambda g: opt.compress_decompress(g, torch.zeros_like(g))[0],
+                              applied)
+    clip = min(1.0, ocfg.grad_clip / max(float(cpu["m"]["grad_norm"]), 1e-12))
+    lr = float(cpu["m"]["lr"])
+    eps = max(ocfg.eps, 1e-5) if int8 else ocfg.eps
+    worst, off = 0.0, []
+    paths, want_leaves = tu.flatten_with_paths(cpu["params"])
+    for path, want, got, g, p0 in zip(paths, want_leaves, tu.leaves(crd["params"]),
+                                      tu.leaves(applied), tu.leaves(params0)):
+        factor = 1e4 if not bool(p0.any()) else 100
+        well = g.abs() * clip >= factor * eps
+        scale = float(want.abs().max())
+        err = (got.double() - want.double()).abs()
+        tol = torch.where(well, LM_TRAIN_TOL["state_rtol"] * scale,
+                          2 * lr + LM_TRAIN_TOL["state_rtol"] * scale)
+        if bool((err > tol).any()):
+            off.append(f"{path}: {int((err > tol).sum())} elements, worst {float(err.max()):.3e}")
+        if bool(well.any()):
+            worst = max(worst, float(err[well].max()) / scale)
+    row = {"arch": arch, "n_microbatch": n_mb, "grad_compress": compress, "int8_moments": int8,
+           "loss_rel_err": rel("loss"), "grad_norm_rel_err": rel("grad_norm"),
+           "grads_worst_rel": grad_err, "params_worst_rel_well_conditioned": worst,
+           "lr_equal": float(crd["m"]["lr"]) == lr,
+           "step_equal": int(crd["m"]["step"]) == int(cpu["m"]["step"]) == 1,
+           "params_off": off, **LM_TRAIN_TOL}
+    if (row["loss_rel_err"] > LM_TRAIN_TOL["loss_rtol"]
+            or row["grad_norm_rel_err"] > LM_TRAIN_TOL["grad_norm_rtol"]
+            or grad_err > LM_TRAIN_TOL["grad_tol"] or off or not row["lr_equal"]
+            or not row["step_equal"]):
+        raise AssertionError(f"LM train step, card vs CPU, outside the bounds: {row}")
+    return row
+
+
+def lm_state_bytes(state, n_mb: int) -> dict:
+    """Bytes of each part of a train state, and of the gradients a step
+    holds (f32 accumulators over microbatches, else the parameters' dtype)."""
+    from repro_torch import tree as tu
+
+    size = lambda t: t.numel() * t.element_size()  # noqa: E731
+    params = tu.leaves(state.params)
+    return {"params": sum(map(size, params)),
+            "moments": sum(map(size, tu.leaves(state.opt.m) + tu.leaves(state.opt.v))),
+            "grads": sum(p.numel() * (4 if n_mb > 1 else p.element_size()) for p in params)}
+
+
+def lm_train_run(dev, arch: str, argv: list, cuts: str, tag) -> dict:
+    """``launch.train.main`` at full width on the card: each step's device
+    ms by CUDA events (the median after the first step), one step traced by
+    ``torch.profiler`` (kernel time over that step's median time: the busy
+    share; its launches), tokens/s, peak memory and the state's bytes by
+    part; for the MoE the entries dropped at capacity in the first layer's
+    dispatch of each step."""
+    from repro_torch.benchmarks import serve_bench
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import moe
+    from repro_torch.train import trainer
+
+    events, dropped, prof = [], [], {}
+    real_make, real_dispatch = trainer.make_train_step, moe.dispatch_group
+
+    def make(*a, **k):
+        step = real_make(*a, **k)
+
+        def timed(state, batch):
+            prof["first_dispatch"] = True
+            if len(events) == LM_TRAIN_PROFILE_STEP and "trace" not in prof:
+                out = []
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                prof["trace"] = serve_bench.kernel_breakdown(
+                    lambda: out.append(step(state, batch)), dev)
+                prof["wall_ms"] = (time.perf_counter() - t) * 1e3
+                return out[0]
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = step(state, batch)
+            e1.record()
+            events.append((e0, e1))
+            return out
+
+        return timed
+
+    def dispatch(ids, n_tokens, cfg_):
+        out = real_dispatch(ids, n_tokens, cfg_)
+        if prof.get("first_dispatch"):
+            prof["first_dispatch"] = False
+            dropped.append(((out[1] < 0).sum(), n_tokens * cfg_.top_k, out[2]))
+        return out
+
+    n_mb = int(argv[argv.index("--microbatch") + 1])
+    gc.collect()  # earlier phases' unreachable tensors, so the peak is this run's
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()  # what earlier phases still hold
+    trainer.make_train_step, moe.dispatch_group = make, dispatch
+    try:
+        res = launch_train.main(["--arch", arch, "--full-config", *argv])
+    except torch.cuda.OutOfMemoryError as e:
+        print(json.dumps({"phase": "lm_train_out_of_memory", "arch": arch,
+                          "peak_bytes": torch.cuda.max_memory_allocated(),
+                          "allocated_bytes": torch.cuda.memory_allocated(),
+                          "error": str(e)[:2000], **tag}), flush=True)
+        raise AssertionError(f"{arch} at full width does not fit: {e}") from e
+    finally:
+        trainer.make_train_step, moe.dispatch_group = real_make, real_dispatch
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = [e0.elapsed_time(e1) for e0, e1 in events]
+    median = statistics.median(step_ms[1:])
+    seq = int(argv[argv.index("--seq") + 1])
+    batch = int(argv[argv.index("--batch") + 1])
+    trace = prof.get("trace")
+    losses = res["losses"]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{arch}: non-finite loss {losses}")
+    out = {"arch": arch, "argv": argv, "cuts": cuts, "steps": len(losses),
+           "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
+           "step_ms_median": median, "step_ms": step_ms,
+           "tokens_per_s_median_step": batch * seq / median * 1e3,
+           "tokens_per_s_launcher": res["tok_per_s"],
+           "profiled_step_wall_ms": prof.get("wall_ms"),
+           "step_kernel_ms": None if trace is None else trace["total_ms"],
+           "step_launches": None if trace is None else trace["kernel_launches"],
+           "step_busy_share": None if trace is None else trace["total_ms"] / median,
+           "step_top_kernels": None if trace is None else trace["kernels"][:8],
+           "peak_memory_gib": peak / 2**30, "allocated_before_gib": before / 2**30,
+           "state_bytes": lm_state_bytes(res["state"], n_mb)}
+    if dropped:
+        out["dropped_layer0_per_step"] = [int(n) for n, _, _ in dropped]
+        out["entries_layer0"], out["capacity"] = dropped[0][1], dropped[0][2]
+    print(json.dumps({"phase": "lm_train", **out, **tag}), flush=True)
+    del res
+    return out
+
+
+def lm_train_resume(dev, tag) -> dict:
+    """A ``--ckpt`` run of qwen1.5-0.5b at full width, then a second
+    invocation on the same directory: the state it restores is bit-equal to
+    the first run's final state, and its steps continue the count."""
+    import tempfile
+
+    from repro_torch import tree as tu
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import checkpoint as ckpt
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_lm_ckpt_")
+    args = ["--arch", "qwen1.5-0.5b", "--full-config", *LM_CKPT_FLAGS, "--ckpt", root]
+    n1, n2 = LM_CKPT_STEPS
+    seen = {}
+    real = ckpt.restore
+    try:
+        first = launch_train.main(args + ["--steps", str(n1)])
+
+        def recording(*a, **k):
+            state, step = real(*a, **k)
+            seen["step"] = step
+            seen["bit_equal"] = all(x.dtype == y.dtype and torch.equal(x, y) for x, y in
+                                    zip(tu.leaves(first["state"]), tu.leaves(state)))
+            return state, step
+
+        ckpt.restore = recording
+        second = launch_train.main(args + ["--steps", str(n2)])
+    finally:
+        ckpt.restore = real
+        shutil.rmtree(root, ignore_errors=True)
+    row = {"arch": "qwen1.5-0.5b", "argv": LM_CKPT_FLAGS, "first_steps": first["steps_run"],
+           "restored_step": seen.get("step"), "restored_bit_equal": seen.get("bit_equal"),
+           "second_steps": second["steps_run"], "opt_step_after": int(second["state"].opt.step),
+           "losses_first": first["losses"], "losses_second": second["losses"],
+           "seconds": [first["seconds"], second["seconds"]]}
+    print(json.dumps({"phase": "lm_train_resume", **row, **tag}), flush=True)
+    if not (row["restored_bit_equal"] and row["restored_step"] == n1 - 1
+            and row["second_steps"] == list(range(n1, n2)) and row["opt_step_after"] == n2):
+        raise AssertionError(f"the --ckpt run did not resume bit-equal: {row}")
+    return row
+
+
+def phase_lm_train(dev, tag) -> dict:
+    """(m) LM training on the card: one train step of qwen1.5-0.5b and
+    olmoe-1b-7b at their smoke configs on the card against the CPU; both at
+    full width through ``launch.train.main`` (bf16, remat); a ``--ckpt``
+    run resumed bit-equal. No hand-written kernel runs on this path: the
+    launch counts, set to 0 before the phase, must read 0 after it."""
+    from repro_torch import backend
+    from repro_torch.models import snn_yolo as sy
+
+    backend.reset_launches()
+    out = {"card_vs_cpu": []}
+    with sy._no_tf32():
+        for arch in ("qwen1.5-0.5b", "olmoe-1b-7b"):
+            for n_mb, compress, int8 in LM_TRAIN_PARITY:
+                row = lm_train_step_both(dev, arch, n_mb, compress, int8)
+                out["card_vs_cpu"].append(row)
+                print(json.dumps({"phase": "lm_train_card_vs_cpu", **row, **tag}), flush=True)
+    out["train"] = {arch: lm_train_run(dev, arch, argv, cuts, tag)
+                    for arch, argv, cuts in LM_TRAIN}
+    torch.cuda.empty_cache()
+    out["resume"] = lm_train_resume(dev, tag)
+    torch.cuda.synchronize()
+    launches = sum(backend.launches.values())
+    print(json.dumps({"phase": "lm_train_kernel_launches",
+                      "hand_written_kernel_launches": launches,
+                      "by_kernel": dict(backend.launches), **tag}), flush=True)
+    if launches:
+        raise AssertionError(f"LM training launched hand-written kernels: "
+                             f"{dict(backend.launches)}")
+    out["kernel_launches"] = launches
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card",
@@ -2308,6 +2604,12 @@ def main() -> int:
     lm = phase_lm(dev, tag)
     print(json.dumps({"phase": "elapsed", "after": "l", "s": time.perf_counter() - t_start}),
           flush=True)
+
+    # -------------------------------------------------------- m. LM training
+    torch.cuda.empty_cache()
+    lm_train = phase_lm_train(dev, tag)
+    print(json.dumps({"phase": "elapsed", "after": "m", "s": time.perf_counter() - t_start}),
+          flush=True)
     train_launches = trained["train"]["kernel_launches"]
     bl, el = benches["bench_launches"], benches["e2e_launches"]
     lif0, mm0 = lif["rows"][0], mm["rows"][0]  # kernel_bench's own shapes
@@ -2348,6 +2650,7 @@ def main() -> int:
         "launches_serving_trained_weights": trained["served"]["launches"],
         "launches_pipeline": pipeline["launches"].get("fused_pipeline", 0),
         "launches_lm_serving": lm["kernel_launches"],
+        "launches_lm_training": lm_train["kernel_launches"],
         "launches_pipeline_per_detect": pipeline["fused_launches_per_detect"],
         "pipeline_uniform_t3_ms": pipeline["uniform_t3_kernel_ms"],
         "pipeline_uniform_t3_plain_ms": pipeline["uniform_t3_plain_ms"],
@@ -2397,6 +2700,7 @@ def main() -> int:
         "launches_train_steps": train_launches.get("gated_one_to_all", 0),
         "launches_pipeline": pipeline["launches"].get("gated_one_to_all", 0),
         "launches_lm_serving": lm["kernel_launches"],
+        "launches_lm_training": lm_train["kernel_launches"],
     }, {
         "name": "fused_lif",
         "route": "cuda",
@@ -2418,6 +2722,7 @@ def main() -> int:
         "launches_train_steps": train_launches.get("spike_lif", 0),
         "launches_pipeline": pipeline["launches"].get("spike_lif", 0),
         "launches_lm_serving": lm["kernel_launches"],
+        "launches_lm_training": lm_train["kernel_launches"],
     }, {
         "name": "bitmask_matmul",
         "route": "cuda",
@@ -2442,6 +2747,7 @@ def main() -> int:
         "launches_train_steps": train_launches.get("bitmask_matmul", 0),
         "launches_pipeline": pipeline["launches"].get("bitmask_matmul", 0),
         "launches_lm_serving": lm["kernel_launches"],
+        "launches_lm_training": lm_train["kernel_launches"],
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

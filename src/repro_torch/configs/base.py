@@ -3,11 +3,12 @@ them (train_4k / prefill_32k / decode_32k / long_500k). A copy of
 ``repro/configs/base.py``: the same fields and defaults, so a config
 written for one package reads the same in the other.
 
-``param_dtype`` is a ``torch.dtype``. ``remat``, ``scan_layers`` and
+``param_dtype`` is a ``torch.dtype``. ``remat`` is read by the training
+forward (each layer's block recomputed in the backward,
+``torch.utils.checkpoint``; numbers unchanged). ``scan_layers`` and
 ``fsdp`` are XLA compile and sharding choices; the port keeps them as data
 (its layers are always stacked (L, ...), as a scanned JAX model's are, so
-parameters cross between the packages leaf for leaf) and reads none of
-them.
+parameters cross between the packages leaf for leaf) and reads neither.
 """
 from __future__ import annotations
 

@@ -11,6 +11,9 @@ to the reference, where recomputing it with ``torch.rsqrt`` would not be.
 :func:`opt_state_from_numpy` takes a JAX ``AdamWState`` (f32 or int8
 ``Q8Leaf`` moments) with numpy leaves and returns the port's;
 :func:`tree_to_numpy` goes the other way for any of the port's trees.
+:func:`train_state_from_numpy` and :func:`train_state_to_numpy` carry an LM
+``TrainState`` (parameters, AdamW state, error-feedback residual) across
+both ways.
 """
 from __future__ import annotations
 
@@ -108,6 +111,33 @@ def lm_params_from_numpy(tree, cfg, *, device=None) -> dict:
         raise ValueError("the port's layers are stacked (L, ...): want params['layers'] "
                          "as a dict of stacked leaves (scan_layers=True)")
     return tu.map_with_keys(leaf, tree)
+
+
+def train_state_from_numpy(state_np, cfg, *, device=None):
+    """A JAX ``trainer.TrainState`` with numpy leaves (e.g.
+    ``jax.tree_util.tree_map(np.asarray, state)``) → the port's, on
+    ``device`` (default: the card): the parameters as
+    :func:`lm_params_from_numpy` gives them, the AdamW state as
+    :func:`opt_state_from_numpy`, and the error-feedback residual (f32) or
+    None."""
+    from repro_torch.train import trainer
+
+    dev = resolve_device(device)
+    ef = None
+    if state_np.ef is not None:
+        ef = opt.EFState(residual=tu.tree_map(lambda a: _tensor(a, dev).float(),
+                                              state_np.ef.residual))
+    return trainer.TrainState(params=lm_params_from_numpy(state_np.params, cfg, device=dev),
+                              opt=opt_state_from_numpy(state_np.opt, device=dev), ef=ef)
+
+
+def train_state_to_numpy(state):
+    """The port's ``TrainState`` with every leaf a host numpy copy (the
+    step updates a state in place), bf16 widened to f32 (exact): leaf for
+    leaf, by the same paths, the JAX package's ``TrainState`` under
+    ``tree_map(np.asarray, ...)``."""
+    return tu.tree_map(lambda x: np.array((x.float() if x.dtype == torch.bfloat16 else x)
+                                          .detach().cpu().numpy()), state)
 
 
 def lm_cache_from_numpy(cache_np, *, device=None):

@@ -278,7 +278,19 @@ def embed_tokens(tokens: torch.Tensor, p: dict) -> torch.Tensor:
 
 
 def logits_fn(x: torch.Tensor, p: dict, cfg: LMConfig) -> torch.Tensor:
-    """Final norm and LM head; f32 logits."""
+    """Final norm and LM head: the product in the parameters' dtype, cast
+    to f32 (``de.lm_head``'s ``(x @ w).astype(float32)``)."""
     x = rmsnorm(x, p["final_norm"], cfg.norm_eps)
     w = p["tok"].T if cfg.tie_embeddings else p["lm_head"]
     return _mm(x, w).float()
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """logits (..., V) f32, labels (...) integers. Mean NLL: the logsumexp
+    as ``jax.nn.logsumexp`` computes it (the max held out of the gradient,
+    0 where it is not finite) minus the gold logit."""
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    logz = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(logz - gold)

@@ -11,12 +11,21 @@ Two serving paths, as in JAX: :func:`forward` (``serve_fast=False``)
 rebuilds the KV cache per layer, and :func:`cached_forward` (the default)
 writes each layer's new rows into the carried stacked cache in place — the
 PyTorch form of the JAX package's carry-aliased ``fori_loop``.
+
+Training: :func:`make_loss_fn` (the next-token loss over :func:`forward`).
+With ``cfg.remat`` each layer's block runs under
+``torch.utils.checkpoint`` while autograd records, as JAX wraps its scanned
+layer in ``jax.checkpoint``: the backward keeps one layer's activations
+and recomputes them, and the numbers are unchanged. ``forward`` also takes
+the layers as a list of per-layer trees (JAX's unscanned layout), which is
+how the trainer hands it one autograd leaf per layer.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tu
 from repro_torch.configs.base import LMConfig
@@ -35,8 +44,11 @@ def layer_init(gen: torch.Generator, cfg: LMConfig) -> dict:
     }
 
 
-def layer_params(layers: dict, i: int) -> dict:
-    """Layer ``i``'s parameters: a view of row i of every stacked leaf."""
+def layer_params(layers, i: int) -> dict:
+    """Layer ``i``'s parameters: a view of row i of every stacked leaf, or
+    entry i of a list of per-layer trees."""
+    if isinstance(layers, list):
+        return layers[i]
     return tu.tree_map(lambda a: a[i], layers)
 
 
@@ -103,14 +115,21 @@ def forward(
     collect_kv: bool = False,
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
     """tokens (B, S) → logits (B, S, V), layer by layer over the stacked
-    params. ``collect_kv``: also return the per-layer K/V (prefill/decode)."""
+    params. ``collect_kv``: also return the per-layer K/V (prefill/decode).
+    Under autograd with ``cfg.remat``, each block is recomputed in the
+    backward instead of kept."""
     collect_kv = collect_kv or kv_cache is not None
+    remat = cfg.remat and torch.is_grad_enabled() and not collect_kv
     x = L.embed_tokens(tokens, params["embed"])
     b, s, _ = x.shape
     positions = _positions(cache_pos if cache_pos is not None else 0, b, s, x.device)
     new_ks, new_vs = [], []
     for i in range(cfg.n_layers):
         lp = layer_params(params["layers"], i)
+        if remat:
+            x = checkpoint(_block_out, block_fn, x, lp, cfg, positions, use_reentrant=False,
+                           preserve_rng_state=False)
+            continue
         kv = L.KVSlice(kv_cache.k[i], kv_cache.v[i]) if kv_cache is not None else None
         x, new_kv = block_fn(x, lp, cfg, positions=positions, kv=kv, cache_pos=cache_pos)
         if collect_kv:
@@ -120,7 +139,27 @@ def forward(
     return L.logits_fn(x, params["embed"], cfg), new_cache
 
 
+def _block_out(block_fn, x, lp, cfg, positions):
+    return block_fn(x, lp, cfg, positions=positions)[0]
+
+
 # ------------------------------------------------------------- step makers --
+
+
+def make_loss_fn(cfg: LMConfig, block_fn=dense_block):
+    """(params, batch) → the mean next-token loss, as JAX's: logits at
+    positions [:-1] against ``labels[:, 1:]``. The ``extra_embeds`` prefix
+    (llava, whisper) is ROADMAP queue 1 item 9c's."""
+
+    def loss_fn(params, batch):
+        if batch.get("extra_embeds") is not None:
+            raise NotImplementedError(
+                "extra_embeds: modality prefixes are not ported yet (ROADMAP.md queue 1 "
+                "item 9c)")
+        logits, _ = forward(params, batch["tokens"], cfg, block_fn=block_fn)
+        return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+
+    return loss_fn
 
 
 def make_prefill_fn(cfg: LMConfig, block_fn=dense_block):

@@ -1,14 +1,18 @@
 """One model API over the LM families. Counterpart of
-``repro/models/zoo.py`` for the families the port serves, dense and moe:
+``repro/models/zoo.py`` for the families the port serves and trains, dense
+and moe:
 
     init_params(seed, device=None)      -> params tree, drawn on the device
+    loss_fn(params, batch)              -> mean next-token loss (f32 scalar)
     prefill_fn(params, tokens, ...)     -> (last logits, cache)
     decode_fn(params, cache, tok, pos)  -> (logits, cache)
     init_cache(batch, max_seq, ...)     -> cache
 
-Training (``loss_fn``) and the sharding metadata (``param_axes``,
-``cache_axes``) wait for the training and distributed slices; the vlm,
-hybrid, ssm and audio families raise :class:`NotImplementedError`.
+The MoE loss goes through :func:`moe.moe_block`, which is what the JAX
+package's ``moe_block_ep`` computes on one device; the load-balance aux
+loss is discarded in both packages. The sharding metadata (``param_axes``,
+``cache_axes``) waits for ROADMAP queue 1 item 9d; the vlm, hybrid, ssm and
+audio families raise :class:`NotImplementedError` (item 9c).
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from repro_torch.models import transformer as tfm
 class ModelAPI(NamedTuple):
     cfg: LMConfig
     init_params: Callable  # (seed, device=None) -> params
+    loss_fn: Callable  # (params, batch) -> loss
     prefill_fn: Callable
     decode_fn: Callable
     init_cache: Callable  # (batch, max_seq, dtype=bf16, device=None) -> cache
@@ -63,6 +68,7 @@ def _dense_api(cfg: LMConfig, block_fn=tfm.dense_block, layer_init=tfm.layer_ini
     return ModelAPI(
         cfg=cfg,
         init_params=init_params,
+        loss_fn=tfm.make_loss_fn(cfg, block_fn),
         prefill_fn=prefill,
         decode_fn=decode,
         init_cache=init_cache,

@@ -9,7 +9,9 @@
 A leaf's path is the JAX pytree key path, e.g. ``['params']/['encode']/['w']``
 or ``['opt']/.m/['encode']/['w']`` (:mod:`repro_torch.tree`), so the JAX
 package's ``restore`` reads what the port writes and the other way round;
-each leaf is stored whole, its dtype as numpy spells it. A committed step is
+each leaf is stored whole, its dtype as numpy spells it (a bf16 leaf, which
+numpy has no type for, widened to f32 — exact; either package's restore
+casts it back to its template's dtype). A committed step is
 a ``step_*`` directory (not ``.tmp``) that holds its manifest.
 
 * :func:`save` stages, fsyncs the manifest and renames: a crash mid-save
@@ -52,7 +54,10 @@ def _host_array(leaf) -> np.ndarray:
     """A host copy of a leaf, detached from anything that may later change
     it in place."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
+        leaf = leaf.detach()
+        if leaf.dtype == torch.bfloat16:
+            return leaf.float().cpu().numpy()
+        return leaf.to("cpu", copy=True).numpy()
     return np.array(leaf)
 
 

@@ -10,6 +10,14 @@ floats they would be f64 and drift from the reference by ulps.
 Int8 moments keep the parameter's shape with one f32 scale per last-dim
 row; the second moment is stored in the sqrt domain, and the eps floor is
 raised to the quantization noise level (1e-5).
+
+Memory: a leaf of more than ``SLICE_ELEMS`` elements is updated (and its
+share of the global norm summed) in slices along dim 0, so no more than one
+slice's f32 temporaries are alive at once — an expert leaf of olmoe-1b-7b
+is 8.6 GB in f32. Every step of the update is elementwise or per last-dim
+row, so the slices give the whole-leaf numbers bit for bit. With
+``donate=True`` the new parameters and moments are written into the old
+state's storage, as JAX's jitted step reuses its donated state.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import torch
 from repro_torch import tree as tu
 
 _F32 = torch.float32
+SLICE_ELEMS = 1 << 25  # elements of a leaf taken at once by the update and the norm
 
 
 def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
@@ -98,22 +107,36 @@ def init_state(params: Any, cfg: AdamWConfig) -> AdamWState:
             )
         return torch.zeros(p.shape, dtype=_F32, device=p.device)
 
-    moments = tu.tree_map(zero_like, params)
     step = torch.zeros((), dtype=torch.int32, device=tu.leaves(params)[0].device)
-    return AdamWState(step=step, m=moments, v=moments)
+    # m and v are separate tensors: an update with donate=True writes into them
+    return AdamWState(step=step, m=tu.tree_map(zero_like, params),
+                      v=tu.tree_map(zero_like, params))
+
+
+def _slices(x: torch.Tensor) -> list:
+    """Index ranges along dim 0 that split a leaf of ≥ 2 dims into pieces of
+    at most ``SLICE_ELEMS`` elements (one row at least); the whole leaf
+    otherwise. An int8 moment's scales (one per last-dim row) split with it."""
+    if x.dim() < 2 or x.numel() <= SLICE_ELEMS:
+        return [...]
+    rows = max(1, SLICE_ELEMS // (x.numel() // x.shape[0]))
+    return [slice(i, i + rows) for i in range(0, x.shape[0], rows)]
 
 
 def global_norm(tree: Any) -> torch.Tensor:
     total = 0
     for leaf in tu.leaves(tree):
-        total = total + torch.sum(torch.square(leaf.to(_F32)))
+        for s in _slices(leaf):
+            total = total + torch.sum(torch.square(leaf[s].to(_F32)))
     return torch.sqrt(total)
 
 
 @torch.no_grad()
-def apply_updates(params: Any, grads: Any, state: AdamWState, cfg: AdamWConfig):
+def apply_updates(params: Any, grads: Any, state: AdamWState, cfg: AdamWConfig, *,
+                  donate: bool = False):
     """One AdamW step with the global-norm grad clip. Returns (new_params,
-    new_state)."""
+    new_state). ``donate``: the caller gives up ``params`` and ``state``,
+    and the new values are written into their tensors."""
     step = state.step + 1
     lr = lr_schedule(cfg, step)
     f = lambda x: _f32(x, lr)  # noqa: E731
@@ -142,8 +165,27 @@ def apply_updates(params: Any, grads: Any, state: AdamWState, cfg: AdamWConfig):
             return new_p, Q8Leaf(*_q8_pack(m)), Q8Leaf(*_q8_pack(torch.sqrt(v)))
         return new_p, m, v
 
-    out = tu.tree_map(upd, params, grads, state.m, state.v, is_leaf=_is_q8)
-    pick = lambda i: tu.tree_map(lambda o: o[i], out, is_leaf=lambda x: type(x) is tuple)  # noqa: E731
+    def sliced(p, g, m_leaf, v_leaf):
+        """``upd`` over dim-0 slices, each written into the output leaves:
+        the old ones (donate) or new ones of the same shapes."""
+        parts = _slices(p)
+        if len(parts) == 1 and not donate:
+            return upd(p, g, m_leaf, v_leaf)
+        out = (p, m_leaf, v_leaf)
+        if not donate:
+            out = tu.tree_map(torch.empty_like, out)
+        for s in parts:
+            new = upd(*(tu.tree_map(lambda x: x[s], a) for a in (p, g, m_leaf, v_leaf)))
+            for dst, src in zip(tu.leaves(out), tu.leaves(new)):
+                dst[s].copy_(src)
+        return out
+
+    out = tu.tree_map(sliced, params, grads, state.m, state.v, is_leaf=_is_q8)
+    is_out = lambda x: type(x) is tuple  # noqa: E731
+    pick = lambda i: tu.tree_map(lambda o: o[i], out, is_leaf=is_out)  # noqa: E731
+    if donate:
+        state.step.copy_(step)
+        step = state.step
     return pick(0), AdamWState(step=step, m=pick(1), v=pick(2))
 
 

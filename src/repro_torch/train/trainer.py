@@ -1,0 +1,142 @@
+"""The LM train-step factory: loss and gradients by autograd, microbatch
+gradient accumulation, optional int8 error-feedback gradient compression,
+and AdamW. Counterpart of ``repro/train/trainer.py`` on one device.
+
+Gradients are computed as JAX's ``value_and_grad`` gives them: in each
+parameter's dtype with one microbatch (bf16 at the full configs), summed in
+f32 over ``n_microbatch`` microbatches and divided by their count, as the
+JAX package's scan does. The loss sees every stacked (L, ...) leaf as L
+per-layer autograd leaves (views of the parameters), and each gradient is
+added into its row of the stacked gradient as soon as autograd has it, so
+no full-size gradient of a stacked leaf is built per layer and the
+accumulation holds one gradient tree at a time.
+
+The step gives up its input state: the new parameters and moments are
+written into its tensors, as the JAX launcher's jitted step donates its
+state. A caller that keeps an old state clones it first.
+
+The sharding metadata (``grad_shardings``, ``batch_sharding``,
+``train_state_axes``) is ROADMAP queue 1 items 9d and 7.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch import tree as tu
+from repro_torch.train import optimizer as opt
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: opt.AdamWState
+    ef: Optional[opt.EFState]  # error-feedback residual (None = off)
+
+
+def init_train_state(params, ocfg: opt.AdamWConfig, *, grad_compress: bool = False):
+    return TrainState(
+        params=params,
+        opt=opt.init_state(params, ocfg),
+        ef=opt.ef_init(params) if grad_compress else None,
+    )
+
+
+def _split_microbatches(batch: dict, n_mb: int) -> dict:
+    def split(x):
+        b = x.shape[0]
+        assert b % n_mb == 0, (b, n_mb)
+        return x.reshape(n_mb, b // n_mb, *x.shape[1:])
+
+    return tu.tree_map(split, batch)
+
+
+def _autograd_views(params: dict, grads: dict, *, accumulate: bool) -> dict:
+    """The params tree the loss sees: every leaf a detached view that
+    requires grad, the stacked ``layers`` as a list of per-layer trees.
+    Each view's gradient is copied (or, with ``accumulate``, added in f32)
+    into the matching view of ``grads`` when autograd produces it, and then
+    dropped."""
+
+    def view(p, g):
+        v = p.detach().requires_grad_(True)
+
+        def land(v_):
+            if accumulate:
+                g.add_(v_.grad)
+            else:
+                g.copy_(v_.grad)
+            v_.grad = None
+
+        v.register_post_accumulate_grad_hook(land)
+        return v
+
+    out = {k: tu.tree_map(view, params[k], grads[k]) for k in params if k != "layers"}
+    layers, g_layers = params["layers"], grads["layers"]
+    n = tu.leaves(layers)[0].shape[0]
+    out["layers"] = [tu.tree_map(lambda p, g: view(p[i], g[i]), layers, g_layers)
+                     for i in range(n)]
+    return out
+
+
+def loss_and_grads(loss_fn: Callable, params: dict, batch: dict, *, n_microbatch: int = 1):
+    """(loss, grads) of ``loss_fn`` at ``params`` over ``batch``: one
+    backward in the parameters' dtype, or the f32 mean over
+    ``n_microbatch`` microbatches. The loss is an f32 scalar."""
+    f32 = torch.float32
+    if n_microbatch == 1:
+        grads = tu.tree_map(torch.zeros_like, params)
+        loss = loss_fn(_autograd_views(params, grads, accumulate=False), batch)
+        loss.backward()
+        return loss.detach().to(f32), grads
+    grads = tu.tree_map(lambda p: torch.zeros(p.shape, dtype=f32, device=p.device), params)
+    views = _autograd_views(params, grads, accumulate=True)
+    mbs = _split_microbatches(batch, n_microbatch)
+    loss = torch.zeros((), dtype=f32, device=tu.leaves(params)[0].device)
+    for i in range(n_microbatch):
+        l_mb = loss_fn(views, {k: v[i] for k, v in mbs.items()})
+        l_mb.backward()
+        loss = loss + l_mb.detach()
+    for g in tu.leaves(grads):
+        g.div_(n_microbatch)
+    return loss / n_microbatch, grads
+
+
+def make_train_step(
+    loss_fn: Callable,
+    ocfg: opt.AdamWConfig,
+    *,
+    n_microbatch: int = 1,
+    grad_compress: bool = False,
+    grad_shardings: Any = None,
+    batch_sharding: Any = None,
+):
+    """Returns ``train_step(state, batch) -> (new_state, metrics)``; the
+    metrics are ``loss``, ``grad_norm``, ``lr`` and ``step``. ``batch`` is a
+    dict of (B, ...) tensors on the parameters' device."""
+    if grad_shardings is not None:
+        raise NotImplementedError("grad_shardings: sharding metadata is not ported yet "
+                                  "(ROADMAP.md queue 1 item 9d)")
+    if batch_sharding is not None:
+        raise NotImplementedError("batch_sharding: the multi-controller global batch is not "
+                                  "ported yet (ROADMAP.md queue 1 item 7)")
+
+    def train_step(state: TrainState, batch: dict):
+        loss, grads = loss_and_grads(loss_fn, state.params, batch, n_microbatch=n_microbatch)
+        new_ef = None
+        if grad_compress and state.ef is not None:
+            pairs = tu.tree_map(opt.compress_decompress, grads, state.ef.residual)
+            is_pair = lambda x: type(x) is tuple  # noqa: E731
+            grads = tu.tree_map(lambda pr: pr[0], pairs, is_leaf=is_pair)
+            new_ef = opt.EFState(residual=tu.tree_map(lambda pr: pr[1], pairs, is_leaf=is_pair))
+        new_params, new_opt = opt.apply_updates(state.params, grads, state.opt, ocfg,
+                                                donate=True)
+        metrics = {
+            "loss": loss,
+            "grad_norm": opt.global_norm(grads),
+            "lr": opt.lr_schedule(ocfg, new_opt.step),
+            "step": new_opt.step.clone(),  # the state's own step is updated in place
+        }
+        return TrainState(params=new_params, opt=new_opt, ef=new_ef), metrics
+
+    return train_step

@@ -8,7 +8,9 @@ same from run to run; the megabatched Engine on the card against solo
 session replays; and the ANN→SNN conversion on the card against the CPU's,
 a converted detector's fused launches at T=128 against the plain version,
 and the COCO fixture feeding ``evaluate_detector``; LM token serving (the
-smoke configs on the card against the CPU, qwen1.5-0.5b at full width).
+smoke configs on the card against the CPU, qwen1.5-0.5b at full width); LM
+training (one train step at the smoke configs on the card against the CPU,
+the training launcher at qwen1.5-0.5b's full width).
 Needs a CUDA device and nothing of JAX; skips without a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -688,3 +690,89 @@ def test_lm_engine_full_width_on_the_card(cuda):
     assert all(len(o) == 8 and all(0 <= t < cfg.vocab_size for t in o) for o in out.values())
     assert all(bool(torch.isfinite(c).all()) for c in calls)
     assert len(calls) == 4 + 7  # one prefill per request, 7 decode steps of all 4 together
+
+
+def _lm_train_step(api, params, batch, n_mb, gc, ocfg):
+    """(grads, new params, metrics) of one train step on ``params``' device,
+    moved to the host; ``params`` are left as they were."""
+    from repro_torch import tree as tu
+    from repro_torch.train import trainer
+
+    p = tu.tree_map(torch.clone, params)
+    _, grads = trainer.loss_and_grads(api.loss_fn, p, batch, n_microbatch=n_mb)
+    new, m = trainer.make_train_step(api.loss_fn, ocfg, n_microbatch=n_mb, grad_compress=gc)(
+        trainer.init_train_state(p, ocfg, grad_compress=gc), batch)
+    cpu = lambda t: tu.tree_map(lambda x: x.cpu(), t)  # noqa: E731
+    return cpu(grads), cpu(new.params), {k: v.cpu() for k, v in m.items()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_mb,gc,int8", [(1, False, False), (2, False, False), (1, True, True)])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "olmoe-1b-7b"])
+def test_lm_train_step_on_the_card_equals_cpu(cuda, arch, n_mb, gc, int8):
+    """One ``make_train_step`` step at the smoke config (f32, TF32 off) on the
+    card and on the CPU from the same params and ``batch_at`` batch, held to
+    tests/test_torch_lm_train.py's bounds: loss and gradient norm 1e-5
+    relative, gradients 1e-5 of each leaf's largest |g|, parameters 1e-6 of
+    the leaf's largest |p| where the applied |ĝ| ≥ 100·eps (1e4·eps for a
+    leaf that starts at 0; R6, R8), 2·lr elsewhere; no hand-written kernel."""
+    from repro_torch import backend
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.configs import smoke_config as lm_smoke
+    from repro_torch.data import lm_data
+    from repro_torch.models import zoo
+    from repro_torch.train import optimizer as opt
+
+    cfg = lm_smoke(get_config(arch))
+    api = zoo.get_api(cfg)
+    params = api.init_params(0, device="cpu")
+    ocfg = opt.AdamWConfig(warmup_steps=2, total_steps=20, int8_moments=int8)
+    b = lm_data.batch_at(0, batch_size=8, seq_len=32, vocab=cfg.vocab_size)
+    before = sum(backend.launches.values())
+    with sy._no_tf32():
+        want = _lm_train_step(api, params, {k: torch.from_numpy(v) for k, v in b.items()},
+                              n_mb, gc, ocfg)
+        got = _lm_train_step(api, tu.tree_map(lambda x: x.to(cuda), params),
+                             {k: torch.from_numpy(v).to(cuda) for k, v in b.items()},
+                             n_mb, gc, ocfg)
+    torch.cuda.synchronize()
+    assert sum(backend.launches.values()) == before
+    for k in ("loss", "grad_norm"):
+        assert abs(float(got[2][k]) - float(want[2][k])) <= 1e-5 * abs(float(want[2][k]))
+    assert float(got[2]["lr"]) == float(want[2]["lr"]) and int(got[2]["step"]) == 1
+    for a, c in zip(tu.leaves(want[0]), tu.leaves(got[0])):
+        assert float((a - c).abs().max()) <= 1e-5 * float(a.abs().max())
+    applied = want[0]
+    if gc:
+        applied = tu.tree_map(lambda g: opt.compress_decompress(g, torch.zeros_like(g))[0],
+                              applied)
+    clip = min(1.0, ocfg.grad_clip / float(want[2]["grad_norm"]))
+    lr, eps = float(want[2]["lr"]), max(ocfg.eps, 1e-5) if int8 else ocfg.eps
+    for p0, a, c, g in zip(tu.leaves(params), tu.leaves(want[1]), tu.leaves(got[1]),
+                           tu.leaves(applied)):
+        well = g.abs() * clip >= (1e4 if not bool(p0.any()) else 100) * eps
+        scale = float(a.abs().max())
+        tol = torch.where(well, 1e-6 * scale, 2 * lr + 1e-6 * scale)
+        assert bool(((c.double() - a.double()).abs() <= tol).all())
+
+
+@pytest.mark.gpu
+def test_lm_train_launcher_full_width_on_the_card(cuda, tmp_path):
+    """``launch.train`` at qwen1.5-0.5b's published width (bf16, remat) for
+    three short steps: finite, falling losses written to ``--losses-out``;
+    the parameters stay bf16; no hand-written kernel launched."""
+    import json
+
+    from repro_torch import backend
+    from repro_torch.launch import train as launch_train
+
+    before = sum(backend.launches.values())
+    out = launch_train.main(["--arch", "qwen1.5-0.5b", "--full-config", "--steps", "3",
+                             "--batch", "4", "--seq", "512", "--microbatch", "2",
+                             "--losses-out", str(tmp_path / "losses.json")])
+    torch.cuda.synchronize()
+    assert sum(backend.launches.values()) == before
+    losses = json.loads((tmp_path / "losses.json").read_text())
+    assert len(losses) == 3 and all(np.isfinite(losses)) and losses[-1] < losses[0]
+    assert out["state"].params["embed"]["tok"].dtype == torch.bfloat16
