@@ -177,6 +177,33 @@ m. One ``make_train_step`` step of qwen1.5-0.5b and olmoe-1b-7b at
    the first run's final state, the step count continuing. The launch
    counts, set to 0 before the phase, read 0 after it.
 
+Multi-process execution (``repro_torch.distributed``), two processes sharing
+the card (each its own CUDA context; gloo, tensors staged through the host:
+NCCL refuses two ranks on one card):
+
+n. The parent saves ``demo_weights(CONFIG)`` (576×1024, pruned 0.8) as a
+   detector checkpoint and scores 16 val images in one process; two
+   processes (``python -c``, a free port, every wait bounded) each restore
+   it on their card, load the kernels the parent built (a rebuild fails the
+   phase), and run ``evaluate_detector(sharded=ShardedEvalConfig(4,
+   batch=4), ctx=)`` on their 2 shards: each report identical to the
+   parent's, ``gather == "process"``, 27 fused launches per ``detect()``,
+   ``n_shards=3`` refused ("stripe evenly"); per process the wall time,
+   images/s, the gather's ms, the backend and peak memory. Then
+   ``launch.serve --eval-map --eval-shards 2`` and ``eval_map --shards 2``
+   on that checkpoint print BIT-IDENTICAL. Data-parallel ``launch.train``:
+   qwen1.5-0.5b at ``smoke_config`` (f32, batch 8, seq 16, 11 steps) in two
+   processes within rtol 2e-4 of one process; at full width (bf16, remat,
+   seq 1024, global batch 8, 6 steps) two processes at microbatch 1 against
+   one at microbatch 2: per process the step ms (CUDA events), the
+   all-reduce's ms and bytes, peak memory; tokens/s; first losses within
+   1e-3 relative (the largest difference over the run printed, not gated:
+   the runs group the rows differently in bf16). Finally the two-process
+   full-width run with ``--ckpt`` for 4 steps (a striped save, its ms), its
+   ``shard_manifest.json`` listing both hosts, resumed by one process to
+   step 8: the restored state's per-leaf checksums equal to both hosts'
+   final state's.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error and times.
 """
@@ -2351,6 +2378,341 @@ def phase_lm_train(dev, tag) -> dict:
     return out
 
 
+# ------------------------------------------------- n. multi-process execution
+
+# phase n: two processes sharing the card (gloo: one card, so not NCCL)
+SHARD_IMAGES, SHARD_SHARDS, SHARD_BATCH = 16, 4, 4  # 2 shards of 4 images per process
+DP_SMOKE = ["--arch", "qwen1.5-0.5b", "--steps", "11", "--batch", "8", "--seq", "16"]
+DP_FULL = ["--arch", "qwen1.5-0.5b", "--full-config", "--seq", "1024", "--batch", "8"]
+DP_FULL_STEPS = 6
+DP_CKPT_STEPS = (4, 8)  # two processes save at step 3; one process resumes to step 8
+CHILD_TIMEOUT_S = 420
+
+# one process of the sharded evaluation (n1): restore the checkpoint on this
+# process's card, the kernel executor, evaluate its own shards twice (the
+# second run timed), then the uneven shard count
+_EVAL_CHILD = r"""
+import json, sys, time
+import torch
+from repro_torch import backend
+from repro_torch.distributed import runtime
+from repro_torch.eval import harness
+from repro_torch.eval import sharded as se
+a = json.loads(sys.argv[1])
+ctx = runtime.initialize(coordinator_address=a["addr"], num_processes=a["n"],
+                         process_id=a["pid"])
+libs = backend.load_kernels()
+rebuilt = [name for name in libs if backend.build_log(name)]
+cfg, p, b, _ = harness.restore_detector_checkpoint(a["ckpt"], device=ctx.device)
+det = harness.compile_eval_detector(cfg, p, b, device=ctx.device)
+n_detect, gather_ms = [0], []
+real_detect, real_gather = det.detect, se._gather_process
+def detect(x):
+    n_detect[0] += 1
+    return real_detect(x)
+def gather(local, c):
+    t = time.perf_counter()
+    out = real_gather(local, c)
+    gather_ms.append((time.perf_counter() - t) * 1e3)
+    return out
+det.detect, se._gather_process = detect, gather
+sharded = se.ShardedEvalConfig(n_shards=a["shards"], batch=a["batch"])
+walls = []
+for run in range(2):
+    if run == 1:
+        backend.reset_launches()
+        n_detect[0] = 0
+        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rep = harness.evaluate_detector(det, n_images=a["images"], sharded=sharded, ctx=ctx)
+    torch.cuda.synchronize()
+    walls.append(time.perf_counter() - t)
+launches = dict(backend.launches)
+try:
+    harness.evaluate_detector(det, n_images=a["images"], ctx=ctx,
+                              sharded=se.ShardedEvalConfig(n_shards=3, batch=a["batch"]))
+    refused = "no error"
+except ValueError as e:
+    refused = str(e)
+print("CHILD=" + json.dumps({
+    "host": ctx.host_id, "describe": ctx.describe(), "backend": ctx.backend,
+    "device": str(ctx.device), "report": rep, "launches": launches, "detects": n_detect[0],
+    "owned_shards": ctx.owned_shards(a["shards"]), "wall_s": walls,
+    "images": a["images"] // a["n"], "images_per_s": a["images"] / a["n"] / walls[1],
+    "gather_ms": gather_ms[-1], "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+    "rebuilt": rebuilt, "uneven_refused": refused}), flush=True)
+runtime.shutdown()
+"""
+
+# one process of an LM training run (n3, n4): launch.train.main with its
+# steps timed by CUDA events, each all-reduce and striped save timed on the
+# host clock (gloo stages through the host, so both end synchronised), and
+# the final (or the restored) state's per-leaf checksums
+_TRAIN_CHILD = r"""
+import hashlib, json, sys, time
+import torch
+from repro_torch import tree as tu
+from repro_torch.distributed import collectives
+from repro_torch.launch import train as launch_train
+from repro_torch.train import checkpoint as ckpt
+from repro_torch.train import trainer
+a = json.loads(sys.argv[1])
+
+def checksums(state):
+    out = {}
+    for path, t in zip(*tu.flatten_with_paths(state)):
+        t = t.detach().cpu().contiguous().reshape(-1)
+        raw = t.view(torch.uint8) if t.numel() else t
+        out[path] = hashlib.sha256(str(t.dtype).encode() + raw.numpy().tobytes()).hexdigest()
+    return out
+
+events, allreduce, saves, restored = [], [], [], {}
+real_make, real_ar = trainer.make_train_step, collectives.allreduce_mean_
+real_save, real_restore = ckpt.save, ckpt.restore
+def make(*args, **kw):
+    step = real_make(*args, **kw)
+    def timed(state, batch):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = step(state, batch)
+        e1.record()
+        events.append((e0, e1))
+        return out
+    return timed
+def timed_ar(tensors, ctx):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sent = real_ar(tensors, ctx)
+    torch.cuda.synchronize()
+    allreduce.append({"ms": (time.perf_counter() - t) * 1e3, "bytes": sent})
+    return sent
+def timed_save(*args, **kw):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = real_save(*args, **kw)
+    saves.append((time.perf_counter() - t) * 1e3)
+    return out
+def recording_restore(*args, **kw):
+    state, step = real_restore(*args, **kw)
+    restored["step"], restored["checksums"] = step, checksums(state)
+    return state, step
+trainer.make_train_step, collectives.allreduce_mean_ = make, timed_ar
+ckpt.save, ckpt.restore = timed_save, recording_restore
+torch.cuda.reset_peak_memory_stats()
+res = launch_train.main(a["argv"])
+torch.cuda.synchronize()
+print("CHILD=" + json.dumps({
+    "losses": res["losses"], "steps_run": res["steps_run"], "seconds": res["seconds"],
+    "tok_per_s": res["tok_per_s"], "step_ms": [e0.elapsed_time(e1) for e0, e1 in events],
+    "allreduce": allreduce, "save_ms": saves, "restored": restored,
+    "checksums": checksums(res["state"]),
+    "peak_gib": torch.cuda.max_memory_allocated() / 2**30}), flush=True)
+"""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_children(argvs: list, *, cwd=None) -> list:
+    """Start one ``python`` per argv at once, wait for all (each within
+    ``CHILD_TIMEOUT_S``), kill any left running, and return their parsed
+    ``CHILD=`` lines; raises if any exited non-zero."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                                    "src")}
+    procs = [subprocess.Popen([sys.executable, *argv], env=env, cwd=cwd, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for argv in argvs]
+    outs, failed = [], []
+    try:
+        for i, p in enumerate(procs):
+            out, err = p.communicate(timeout=CHILD_TIMEOUT_S)
+            if p.returncode != 0:
+                failed.append(f"child {i} exited {p.returncode}:\n{out[-2000:]}\n{err[-4000:]}")
+            lines = [ln for ln in out.splitlines() if ln.startswith("CHILD=")]
+            outs.append(json.loads(lines[-1][len("CHILD="):]) if lines else None)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if failed:
+        raise AssertionError("\n".join(failed))
+    return outs
+
+
+def train_children(argv: list, n: int) -> list:
+    """``launch.train`` as ``n`` processes of one job (``n`` = 1: one
+    process, no coordinator) through ``_TRAIN_CHILD``."""
+    if n == 1:
+        return run_children([["-c", _TRAIN_CHILD, json.dumps({"argv": argv})]])
+    addr = f"127.0.0.1:{free_port()}"
+    return run_children([["-c", _TRAIN_CHILD, json.dumps({"argv": argv + [
+        "--coordinator", addr, "--num-processes", str(n), "--process-id", str(pid)]})]
+        for pid in range(n)])
+
+
+def train_row(tag_: str, runs: list, n_procs: int) -> dict:
+    """One run's numbers: per process the step ms (the first step apart),
+    all-reduce ms and bytes, peak memory; the run's losses and tokens/s."""
+    r0 = runs[0]
+    row = {"run": tag_, "processes": n_procs, "losses": r0["losses"],
+           "tok_per_s": r0["tok_per_s"], "seconds": r0["seconds"],
+           "per_process": [{
+               "step_ms": r["step_ms"],
+               "step_ms_median_after_first": statistics.median(r["step_ms"][1:])
+               if len(r["step_ms"]) > 1 else None,
+               "allreduce_ms": [x["ms"] for x in r["allreduce"]],
+               "allreduce_bytes": sorted({x["bytes"] for x in r["allreduce"]}),
+               "save_ms": r["save_ms"], "peak_gib": r["peak_gib"]} for r in runs]}
+    return row
+
+
+def phase_multiprocess(dev, tag, fused_kernel: str) -> dict:
+    """(n) Multi-process execution on the one card: the sharded detector
+    evaluation at full width in two processes (the fused kernel in each),
+    the CLIs' shard gates, data-parallel LM training in two processes
+    against one, and a striped checkpoint resumed by one process."""
+    import tempfile
+
+    from repro_torch.configs.snn_det import CONFIG
+    from repro_torch.eval import harness
+    from repro_torch.eval import sharded as se
+    from repro_torch.serve.detector import demo_weights
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_multiprocess_")
+    out = {}
+    try:
+        # n1. the sharded evaluation at 576x1024, two processes on the card
+        cfg = dataclasses.replace(CONFIG, conv_exec="pallas")
+        params, bn, _ = demo_weights(cfg, prune_rate=0.8, seed=SEED, calib_batch=BATCH,
+                                     device=dev)
+        det_ckpt = os.path.join(root, "detector")
+        harness.save_detector_checkpoint(det_ckpt, 0, params, bn, cfg)
+        del params, bn
+        _, rp, rb, _ = harness.restore_detector_checkpoint(det_ckpt, device=dev)
+        single_det = harness.compile_eval_detector(cfg, rp, rb, device=dev)
+        harness.evaluate_detector(single_det, n_images=SHARD_BATCH, batch=SHARD_BATCH)  # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        single = harness.evaluate_detector(single_det, n_images=SHARD_IMAGES, batch=SHARD_BATCH)
+        torch.cuda.synchronize()
+        single_s = time.perf_counter() - t
+        del single_det, rp, rb
+        torch.cuda.empty_cache()
+        addr = f"127.0.0.1:{free_port()}"
+        kids = run_children([["-c", _EVAL_CHILD, json.dumps({
+            "addr": addr, "n": 2, "pid": pid, "ckpt": det_ckpt, "images": SHARD_IMAGES,
+            "shards": SHARD_SHARDS, "batch": SHARD_BATCH})] for pid in range(2)])
+        rows = []
+        for k in kids:
+            per_detect = k["launches"].get(fused_kernel, 0) / max(k["detects"], 1)
+            row = {key: k[key] for key in ("host", "describe", "backend", "device", "launches",
+                                           "detects", "owned_shards", "wall_s", "images",
+                                           "images_per_s", "gather_ms", "peak_gib",
+                                           "rebuilt", "uneven_refused")}
+            row.update(identical_to_single=se.reports_identical(k["report"], single),
+                       gather=k["report"]["gather"], map=k["report"]["map"],
+                       fused_per_detect=per_detect)
+            rows.append(row)
+            print(json.dumps({"phase": "sharded_eval", **row, **tag}), flush=True)
+            if not (row["identical_to_single"] and row["gather"] == "process"
+                    and per_detect == 27 and "stripe evenly" in row["uneven_refused"]
+                    and not row["rebuilt"] and k["report"]["n_images"] == SHARD_IMAGES):
+                raise AssertionError(f"sharded evaluation process {k['host']}: {row}")
+        out["sharded_eval"] = {
+            "processes": rows, "single_process_s": single_s,
+            "single_process_images_per_s": SHARD_IMAGES / single_s,
+            "single_map": single["map"], "n_pred": single["n_pred"],
+            "launches": {name: sum(k["launches"].get(name, 0) for k in kids)
+                         for name in set().union(*(k["launches"] for k in kids))},
+            "detects": sum(k["detects"] for k in kids)}
+        print(json.dumps({"phase": "sharded_eval_single", "seconds": single_s,
+                          "images": SHARD_IMAGES, "map": single["map"], **tag}), flush=True)
+
+        # n2. the CLIs' shard gates, one process each
+        for name, argv in (
+            ("serve_eval_shards", ["-m", "repro_torch.launch.serve", "--arch", "snn-det",
+                                   "--eval-map", "--eval-shards", "2", "--checkpoint",
+                                   det_ckpt, "--requests", "8"]),
+            ("eval_map_shards", ["-m", "repro_torch.benchmarks.eval_map", "--checkpoint",
+                                 det_ckpt, "--shards", "2", "--out-json", ""]),
+        ):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, *argv], cwd=root, capture_output=True,
+                               text=True, timeout=CHILD_TIMEOUT_S, env={
+                                   **os.environ, "PYTHONPATH": os.path.join(
+                                       os.path.dirname(os.path.abspath(__file__)), "src")})
+            lines = [ln for ln in r.stdout.splitlines()
+                     if "parity" in ln or "shards" in ln or "mAP" in ln]
+            out[name] = {"rc": r.returncode, "seconds": time.perf_counter() - t0,
+                         "lines": lines}
+            print(json.dumps({"phase": name, **out[name], **tag}), flush=True)
+            if r.returncode != 0 or not any("BIT-IDENTICAL" in ln for ln in lines):
+                raise AssertionError(f"{name} exited {r.returncode} without its parity line: "
+                                     f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+
+        # n3. data-parallel LM training: the smoke trajectory, then full width
+        smoke2 = train_children(DP_SMOKE, 2)
+        smoke1 = train_children(DP_SMOKE, 1)
+        a, b = np.asarray(smoke2[0]["losses"]), np.asarray(smoke1[0]["losses"])
+        smoke = {"losses_two": a.tolist(), "losses_one": b.tolist(),
+                 "max_rel_diff": float(np.max(np.abs(a - b) / np.abs(b))),
+                 "within_rtol_2e-4": bool(np.all(np.abs(a - b) <= 1e-5 + 2e-4 * np.abs(b)))}
+        print(json.dumps({"phase": "dp_train_smoke", **smoke, **tag}), flush=True)
+        if len(a) != len(b) or not smoke["within_rtol_2e-4"]:
+            raise AssertionError(f"two-process smoke trajectory off the one-process one: {smoke}")
+        steps = ["--steps", str(DP_FULL_STEPS)]
+        two = train_row("two_processes", train_children(
+            DP_FULL + steps + ["--microbatch", "1"], 2), 2)
+        one = train_row("one_process", train_children(
+            DP_FULL + steps + ["--microbatch", "2"], 1), 1)
+        la, lb = np.asarray(two["losses"]), np.asarray(one["losses"])
+        full = {"argv": DP_FULL + steps, "two": two, "one": one,
+                "first_loss_rel_diff": float(abs(la[0] - lb[0]) / abs(lb[0])),
+                "max_loss_rel_diff": float(np.max(np.abs(la - lb) / np.abs(lb)))}
+        for row in (two, one):
+            print(json.dumps({"phase": "dp_train", **row, **tag}), flush=True)
+        print(json.dumps({"phase": "dp_train_compare", "first_loss_rel_diff":
+                          full["first_loss_rel_diff"], "max_loss_rel_diff":
+                          full["max_loss_rel_diff"], **tag}), flush=True)
+        if not full["first_loss_rel_diff"] <= 1e-3:
+            raise AssertionError(f"full-width first losses differ: {la[0]} vs {lb[0]}")
+
+        # n4. a striped checkpoint at full width, resumed by one process
+        ck = os.path.join(root, "lm_ckpt")
+        n1, n2 = DP_CKPT_STEPS
+        first = train_children(DP_FULL + ["--steps", str(n1), "--microbatch", "1",
+                                          "--ckpt", ck], 2)
+        with open(os.path.join(ck, f"step_{n1 - 1:09d}", "shard_manifest.json")) as f:
+            manifest = json.load(f)
+        resumed = train_children(DP_FULL + ["--steps", str(n2), "--microbatch", "2",
+                                            "--ckpt", ck], 1)[0]
+        striped = {"hosts_in_manifest": sorted(manifest["hosts"]),
+                   "files_per_host": {h: len(v) for h, v in manifest["hosts"].items()},
+                   "save_ms": [r["save_ms"] for r in first],
+                   "hosts_agree": first[0]["checksums"] == first[1]["checksums"],
+                   "restored_step": resumed["restored"].get("step"),
+                   "restored_bit_equal": resumed["restored"].get("checksums")
+                   == first[0]["checksums"],
+                   "leaves": len(first[0]["checksums"]),
+                   "steps_resumed": resumed["steps_run"], "losses_first": first[0]["losses"],
+                   "losses_resumed": resumed["losses"]}
+        print(json.dumps({"phase": "striped_checkpoint", **striped, **tag}), flush=True)
+        if not (striped["hosts_in_manifest"] == ["0", "1"] and striped["hosts_agree"]
+                and striped["restored_bit_equal"] and striped["restored_step"] == n1 - 1
+                and striped["steps_resumed"] == list(range(n1, n2))):
+            raise AssertionError(f"the striped checkpoint did not resume bit-equal: {striped}")
+        out.update(dp_smoke=smoke, dp_full=full, striped=striped)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card",
@@ -2610,6 +2972,14 @@ def main() -> int:
     lm_train = phase_lm_train(dev, tag)
     print(json.dumps({"phase": "elapsed", "after": "m", "s": time.perf_counter() - t_start}),
           flush=True)
+
+    # ------------------------------------------ n. multi-process execution
+    gc.collect()
+    torch.cuda.empty_cache()
+    multi = phase_multiprocess(dev, tag, fp.KERNEL)
+    print(json.dumps({"phase": "elapsed", "after": "n", "s": time.perf_counter() - t_start}),
+          flush=True)
+    sharded_launches = multi["sharded_eval"]["launches"]
     train_launches = trained["train"]["kernel_launches"]
     bl, el = benches["bench_launches"], benches["e2e_launches"]
     lif0, mm0 = lif["rows"][0], mm["rows"][0]  # kernel_bench's own shapes
@@ -2669,6 +3039,11 @@ def main() -> int:
         "conversion_t64_per": f"one detect() of the COCO-calibrated CONFIG conversion, batch "
                               f"{conversion['full_width']['batch']}, 576x1024: sum over its 27 "
                               "fused layers",
+        "launches_sharded_eval": sharded_launches.get(fp.KERNEL, 0),
+        "launches_sharded_eval_per_detect":
+            sharded_launches.get(fp.KERNEL, 0) / multi["sharded_eval"]["detects"],
+        "sharded_eval_per": f"both processes of the sharded evaluation ({SHARD_IMAGES} images, "
+                            f"{SHARD_SHARDS} shards, 576x1024), their timed run",
     }, {
         "name": "gated_one_to_all",
         "route": "cuda",
@@ -2701,6 +3076,7 @@ def main() -> int:
         "launches_pipeline": pipeline["launches"].get("gated_one_to_all", 0),
         "launches_lm_serving": lm["kernel_launches"],
         "launches_lm_training": lm_train["kernel_launches"],
+        "launches_sharded_eval": sharded_launches.get("gated_one_to_all", 0),
     }, {
         "name": "fused_lif",
         "route": "cuda",
@@ -2723,6 +3099,7 @@ def main() -> int:
         "launches_pipeline": pipeline["launches"].get("spike_lif", 0),
         "launches_lm_serving": lm["kernel_launches"],
         "launches_lm_training": lm_train["kernel_launches"],
+        "launches_sharded_eval": sharded_launches.get("spike_lif", 0),
     }, {
         "name": "bitmask_matmul",
         "route": "cuda",
@@ -2748,6 +3125,7 @@ def main() -> int:
         "launches_pipeline": pipeline["launches"].get("bitmask_matmul", 0),
         "launches_lm_serving": lm["kernel_launches"],
         "launches_lm_training": lm_train["kernel_launches"],
+        "launches_sharded_eval": sharded_launches.get("bitmask_matmul", 0),
     }]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

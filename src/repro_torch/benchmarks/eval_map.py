@@ -19,14 +19,16 @@ stages for ``repro_torch.launch.serve --checkpoint`` to restore;
 ``--checkpoint <dir>`` skips training and scores a saved detector
 (``BENCH_torch_eval_ckpt.json``) — a converted detector
 (``repro_torch.launch.convert``) too. ``--dataset`` takes ``synthetic``,
-``coco:<instances.json>`` or ``voc:<dir>`` (letterboxed annotated frames);
-``--shards > 1`` (the mesh-sharded evaluation) is ROADMAP queue 1 item 7
-and raises.
+``coco:<instances.json>`` or ``voc:<dir>`` (letterboxed annotated frames).
+``--shards K`` routes every evaluation through the sharded path
+(``repro_torch.eval.sharded``) and then re-scores the final weights in one
+process, failing the run unless the two reports are bit-identical (the
+JAX package's parity gate); it composes with ``--checkpoint``.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.eval_map [--fast]
       [--ckpt-dir DIR] [--out-json PATH] [--device cpu]
   PYTHONPATH=src python -m repro_torch.benchmarks.eval_map --checkpoint DIR
-      [--dataset coco:<instances.json>|voc:<dir>]
+      [--dataset coco:<instances.json>|voc:<dir>] [--shards 2]
 """
 from __future__ import annotations
 
@@ -34,7 +36,9 @@ import argparse
 import json
 
 from repro_torch.data import detection_datasets as dd
+from repro_torch.distributed import runtime
 from repro_torch.eval import harness
+from repro_torch.eval.sharded import reports_identical
 
 OUT_JSON = "BENCH_torch_eval.json"
 OUT_JSON_CKPT = "BENCH_torch_eval_ckpt.json"
@@ -48,7 +52,8 @@ def run_checkpoint(ckpt: str, *, eval_images: int = 48, shards: int = 1,
     cfg, params, bn, step = harness.restore_detector_checkpoint(ckpt, device=device)
     det = harness.compile_eval_detector(cfg, params, bn, device=device)
     rep = harness.evaluate_detector(det, n_images=eval_images, source=source,
-                                    sharded=shards if shards > 1 else None)
+                                    sharded=shards if shards > 1 else None,
+                                    ctx=runtime.get_context())
     print(f"  checkpoint {ckpt} (step {step}, arch {cfg.arch_id}): "
           f"mAP@0.5 {rep['map']:.4f} on {rep['n_images']} images")
     results = {
@@ -61,11 +66,31 @@ def run_checkpoint(ckpt: str, *, eval_images: int = 48, shards: int = 1,
         "n_gt": rep["n_gt"],
         "n_images": rep["n_images"],
     }
+    if shards > 1:
+        results["sharded_parity"] = _parity_gate(
+            rep, harness.evaluate_detector(det, n_images=eval_images, source=source), shards)
     if out_json:
         with open(out_json, "w") as f:
             json.dump(results, f, indent=1)
         print(f"  wrote {out_json}")
     return results
+
+
+def _parity_gate(sharded_rep: dict, single_rep: dict, shards: int) -> dict:
+    """The acceptance gate of ``--shards``: the sharded report must be
+    bit-identical to a single-process score of the same weights; raises
+    SystemExit otherwise."""
+    identical = reports_identical(sharded_rep, single_rep)
+    print(f"  sharded parity [{shards} shards, {sharded_rep.get('gather')} gather]: "
+          f"mAP {sharded_rep['map']:.6f} vs single-process {single_rep['map']:.6f} — "
+          f"{'BIT-IDENTICAL' if identical else 'MISMATCH'}")
+    if not identical:
+        raise SystemExit(f"sharded ({shards}-way) mAP is not bit-identical to the "
+                         f"single-process evaluation: {sharded_rep['map']!r} vs "
+                         f"{single_rep['map']!r}")
+    return {"n_shards": shards, "gather": sharded_rep.get("gather"),
+            "map_sharded": sharded_rep["map"], "map_single_host": single_rep["map"],
+            "bit_identical": identical}
 
 
 def run(*, steps: int = 3500, finetune_steps: int = 600, batch: int = 6,
@@ -75,7 +100,7 @@ def run(*, steps: int = 3500, finetune_steps: int = 600, batch: int = 6,
     report = harness.run_pipeline(
         steps=steps, finetune_steps=finetune_steps, batch=batch,
         eval_images=eval_images, eval_shards=shards, source=source, ckpt_dir=ckpt_dir,
-        verbose=True, device=device,
+        verbose=True, device=device, ctx=runtime.get_context(),
     )
     s = report.summary()
     results = {
@@ -91,6 +116,13 @@ def run(*, steps: int = 3500, finetune_steps: int = 600, batch: int = 6,
         },
         "final_loss": {k: v[-1] for k, v in report.losses.items() if v},
     }
+    if shards > 1:
+        # the sharded stage numbers above against a single-process re-score
+        # of the same final weights
+        results["sharded_parity"] = _parity_gate(
+            report.stages["qat"],
+            harness.evaluate_detector(report.final_det, n_images=eval_images, source=source),
+            shards)
     if out_json:
         with open(out_json, "w") as f:
             json.dump(results, f, indent=1)
@@ -104,7 +136,8 @@ def main(argv=None) -> dict:
                     help="smoke-scale (mAP not representative)")
     ap.add_argument("--steps", type=int, default=None)
     ap.add_argument("--shards", type=int, default=1,
-                    help="evaluation shard count (only 1 is ported: ROADMAP item 7)")
+                    help="evaluation shard count (sharded mAP; asserts bit-identical "
+                         "parity with the single-process evaluation)")
     ap.add_argument("--dataset", default="synthetic",
                     help="train/eval data: synthetic | coco:<instances.json> | voc:<dir>")
     ap.add_argument("--ckpt-dir", default=None,

@@ -28,8 +28,8 @@ worst-case conv accumulator against the ASIC's 16-bit claim
   step of it and :func:`loss_and_grads` its differentiable half. TF32 stays
   off throughout.
 * :func:`evaluate_detector` — mAP@IoU of a compiled detector on an eval
-  split, TF32 off (single host; the sharded evaluator is ROADMAP queue 1
-  item 7).
+  split, TF32 off, in one process or sharded across shards and processes
+  (:mod:`repro_torch.eval.sharded`).
 * :func:`run_pipeline` — train → prune → QAT → evaluate, returning an
   :class:`EvalReport`; :func:`accumulator_report` — the 16-bit claim.
 * :func:`save_detector_checkpoint` / :func:`restore_detector_checkpoint` —
@@ -108,36 +108,56 @@ def accumulator_report(det) -> dict:
     }
 
 
+def predictions(det, images: np.ndarray, batch: int) -> list:
+    """Per-image prediction dicts of ``det`` on host ``images``, detected
+    ``batch`` at a time with TF32 off (float weights score on the card as
+    on the CPU)."""
+    preds = []
+    with sy._no_tf32():
+        for i in range(0, len(images), batch):
+            dets, _ = det.detect(torch.from_numpy(images[i : i + batch]))
+            preds.extend(dm.detections_to_predictions(
+                type(dets)(*(t.cpu().numpy() for t in dets))))
+    return preds
+
+
 def evaluate_detector(det, *, n_images: int = 32, split: str = "val", batch: int = 8,
                       iou_threshold: float = 0.5, sharded=None,
-                      source: Optional[dd.DetectionSource] = None) -> dict:
+                      source: Optional[dd.DetectionSource] = None, ctx=None) -> dict:
     """mAP@iou of a :class:`~repro_torch.serve.detector.CompiledDetector` on
-    an eval split of ``source`` (the synthetic generator by default). The
-    handle's own postprocess settings are used: build it with
-    :func:`compile_eval_detector` for evaluation thresholds. The forward runs
-    with TF32 off, so float weights score on the card as on the CPU."""
-    if sharded is not None:
-        raise NotImplementedError(
-            "sharded evaluation is not ported yet (ROADMAP.md queue 1 item 7); "
-            "pass sharded=None"
-        )
+    an eval split of ``source`` (the synthetic generator by default;
+    ``n_images`` clamps to a finite source's split). The handle's own
+    postprocess settings are used: build it with
+    :func:`compile_eval_detector` for evaluation thresholds.
+
+    ``sharded``: a :class:`repro_torch.eval.sharded.ShardedEvalConfig` (or
+    a bare shard count) routes the evaluation through the sharded path —
+    striped split, per-shard forward→decode→NMS, an exact reduction of the
+    pooled match stats — bit-identical to this path for any shard count.
+    ``ctx``: a :class:`repro_torch.distributed.runtime.DistributedContext`;
+    under a multi-controller launch each process walks only the shards it
+    owns and the stats are gathered across processes (requires
+    ``sharded``)."""
     source = source or dd.SyntheticSource()
     cap = source.num_eval_images(split)
     if cap is not None:
         n_images = min(n_images, cap)
+    if sharded is not None:
+        from repro_torch.eval import sharded as se
+
+        eval_cfg = (se.ShardedEvalConfig(n_shards=sharded, batch=batch)
+                    if isinstance(sharded, int) else sharded)
+        return se.evaluate_detector_sharded(det, n_images=n_images, split=split,
+                                            iou_threshold=iou_threshold, eval_cfg=eval_cfg,
+                                            source=source, ctx=ctx)
     cfg = det.cfg
     images, gts = source.eval_set(
         n_images, split=split, hw=cfg.input_hw, grid_div=grid_div(cfg),
         num_anchors=cfg.num_anchors, num_classes=cfg.num_classes,
     )
-    preds = []
-    with sy._no_tf32():
-        for i in range(0, n_images, batch):
-            dets, _ = det.detect(torch.from_numpy(images[i : i + batch]))
-            preds.extend(dm.detections_to_predictions(
-                type(dets)(*(t.cpu().numpy() for t in dets))))
     report = dm.evaluate_detections(
-        preds, gts, num_classes=cfg.num_classes, iou_threshold=iou_threshold
+        predictions(det, images, batch), gts, num_classes=cfg.num_classes,
+        iou_threshold=iou_threshold
     )
     report["split"] = split
     return report
@@ -328,6 +348,7 @@ def run_pipeline(
     ckpt_dir: Optional[str] = None,
     verbose: bool = True,
     device=None,
+    ctx=None,
 ) -> EvalReport:
     """The scaled-down Table I / Fig 15 reproduction on ``device`` (default:
     the card), which trains and runs every evaluation.
@@ -340,12 +361,14 @@ def run_pipeline(
     ``use_block_conv=True``, since the compressed ones always use block-conv
     borders, so a compressed ``conv_exec`` requires a block-conv config.
 
-    ``eval_shards > 1`` (the mesh-sharded evaluation) is ROADMAP queue 1
-    item 7 and raises. ``source`` swaps the dataset for training and
-    evaluation (synthetic by default). ``ckpt_dir`` commits a detector
-    checkpoint after the float stage (step ``steps``) and after QAT (step
-    ``steps + finetune_steps``), which ``launch/serve.py --checkpoint``
-    restores and serves.
+    ``eval_shards > 1`` routes every stage evaluation through the sharded
+    path (:mod:`repro_torch.eval.sharded`, under ``ctx``'s processes when
+    it is a multi-controller context); the reduction is exact, so the
+    reports are bit-identical to ``eval_shards=1``'s. ``source`` swaps the
+    dataset for training and evaluation (synthetic by default). ``ckpt_dir``
+    commits a detector checkpoint after the float stage (step ``steps``) and
+    after QAT (step ``steps + finetune_steps``), which ``launch/serve.py
+    --checkpoint`` restores and serves.
     """
     t0 = time.time()
     base = cfg if cfg is not None else demo_config()
@@ -358,20 +381,17 @@ def run_pipeline(
             "with use_block_conv=True (demo_config's block_hw=(6, 10) "
             "divides every feature map) or keep conv_exec='dense'"
         )
-    if eval_shards > 1:
-        raise NotImplementedError(
-            "sharded evaluation (eval_shards > 1) is not ported yet "
-            "(ROADMAP.md queue 1 item 7); pass eval_shards=1"
-        )
     float_cfg = dataclasses.replace(base, weight_bits=0, conv_exec="dense")
     quant_cfg = dataclasses.replace(base, weight_bits=8, conv_exec=conv_exec)
     stages: dict = {}
     losses: dict = {}
+    sharded_cfg = eval_shards if eval_shards > 1 else None
     source = source or dd.SyntheticSource()
 
     def _eval(tag, c, p, b):
         det = compile_eval_detector(c, p, b, device=device)
-        stages[tag] = evaluate_detector(det, n_images=eval_images, source=source)
+        stages[tag] = evaluate_detector(det, n_images=eval_images, sharded=sharded_cfg,
+                                        source=source, ctx=ctx)
         if verbose:
             aps = ", ".join(f"{a:.3f}" for a in stages[tag]["per_class_ap"])
             print(f"  [{tag}] mAP@0.5 {stages[tag]['map']:.3f}  (per-class {aps})")
@@ -416,7 +436,7 @@ def run_pipeline(
         "uniform_t3": evaluate_detector(
             compile_eval_detector(dataclasses.replace(quant_cfg, mixed_time=False), qp, qbn,
                                   device=device),
-            n_images=eval_images, source=source,
+            n_images=eval_images, sharded=sharded_cfg, source=source, ctx=ctx,
         ),
     }
     report = EvalReport(

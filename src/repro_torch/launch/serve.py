@@ -12,9 +12,10 @@ counterpart of ``repro/launch/serve.py``.
   raise ``NotImplementedError`` (ROADMAP.md queue 1 item 9c).
 * snn-det frame streams: the compile-once detector with its membranes
   resident on the device (``--dataset`` takes ``synthetic``,
-  ``coco:<instances.json>`` or ``voc:<dir>``; ``--eval-shards`` 1 only,
-  ROADMAP item 7). ``--eval-map`` serves the val split, one frame per
-  request, and scores the served detections (mAP@0.5). With
+  ``coco:<instances.json>`` or ``voc:<dir>``). ``--eval-map`` serves the
+  val split, one frame per request, and scores the served detections
+  (mAP@0.5; ``--eval-shards K`` scores them through the sharded reduction,
+  bit-identical to one shard). With
   ``--checkpoint`` the detector is built with the evaluation postprocess
   settings and the score must equal ``harness.evaluate_detector`` on the
   same weights bit for bit: the run prints the parity line and exits
@@ -31,7 +32,7 @@ Usage:
       [--checkpoint DIR] [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch snn-det --eval-map \\
       --checkpoint DIR [--requests 8] [--dataset coco:<instances.json>|voc:<dir>] \\
-      [--device cpu]
+      [--eval-shards 2] [--device cpu]
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ import numpy as np
 from repro_torch import backend
 from repro_torch.configs import ALL_IDS, get_config, smoke_config
 from repro_torch.data import detection_datasets as dd
+from repro_torch.distributed import runtime
 from repro_torch.eval import detection_map as dm
 from repro_torch.eval import harness
 from repro_torch.eval import sharded as se
@@ -93,11 +95,6 @@ def _serve_lm(cfg, args):
 
 def _serve_detector(cfg, args):
     source = dd.parse_dataset_spec(args.dataset)
-    if args.eval_shards > 1:
-        raise NotImplementedError(
-            f"--eval-shards {args.eval_shards}: sharded evaluation is not ported yet "
-            "(ROADMAP.md queue 1 item 7); use --eval-shards 1"
-        )
     if args.checkpoint:
         # trained weights: the checkpoint's config sidecar replaces the
         # command line's config; --conv-exec still picks the executor
@@ -166,15 +163,26 @@ def _score_served(det, done, gts, source, eng, args):
         raise SystemExit("--eval-map scores every val image; don't bound --max-queue "
                          "below --requests")
     preds = [r.out[0] for r in sorted(done, key=lambda r: r.rid)]
-    rep = dm.evaluate_detections(preds, gts, num_classes=det.cfg.num_classes,
-                                 iou_threshold=0.5)
+    if args.eval_shards > 1:
+        # the sharded reduction (striped match stats, gathered and
+        # re-sorted): bit-identical to the sweep below for any shard count;
+        # the context routes shard ownership under a multi-process launch
+        rep = se.evaluate_predictions_sharded(
+            preds, gts, num_classes=det.cfg.num_classes, iou_threshold=0.5,
+            eval_cfg=se.ShardedEvalConfig(n_shards=args.eval_shards),
+            ctx=runtime.get_context())
+        shard_note = f" ({rep['n_shards']} shards, {rep['gather']} gather)"
+    else:
+        rep = dm.evaluate_detections(preds, gts, num_classes=det.cfg.num_classes,
+                                     iou_threshold=0.5)
+        shard_note = ""
     weights_note = (
         "restored trained weights" if args.checkpoint else
         f"at the serving score threshold ({det.score_threshold}) — demo weights are "
         "random-calibrated; pass --checkpoint <dir> for representative accuracy"
     )
     print(f"  served-detections mAP@0.5 {rep['map']:.3f} over {rep['n_images']} val "
-          f"frames ({args.dataset}) — {weights_note}")
+          f"frames ({args.dataset}){shard_note} — {weights_note}")
     if args.checkpoint:
         # the end-to-end contract: detections that went through admission
         # and slot batching score exactly as the harness scores the same
@@ -216,8 +224,8 @@ def main(argv=None):
                          "postprocess settings and must equal "
                          "harness.evaluate_detector bit for bit")
     ap.add_argument("--eval-shards", type=int, default=1,
-                    help="shard count of the --eval-map reduction (only 1 is ported: "
-                         "ROADMAP item 7)")
+                    help="shard count of the --eval-map reduction (sharded mAP, "
+                         "bit-identical to 1 shard)")
     ap.add_argument("--max-queue", type=int, default=None,
                     help="admission control: bound the submit queue at this many "
                          "waiting requests (default: unbounded)")

@@ -12,8 +12,9 @@ Usage:
 ``--full-config`` trains the paper's 576×1024 ``snn-det`` (block conv
 18×32) instead of the 96×160 demo configuration; ``--dataset`` takes
 ``synthetic``, ``coco:<instances.json>`` or ``voc:<dir>`` (letterboxed
-annotated frames, for training and the mAP report); ``--eval-shards`` 1
-only (the sharded evaluator is ROADMAP queue 1 item 7).
+annotated frames, for training and the mAP report); ``--eval-shards K``
+scores the mAP report through the sharded evaluator (bit-identical to one
+shard).
 Runs on the card unless ``--device cpu``; exits non-zero when the loss did
 not fall.
 """
@@ -52,16 +53,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--eval-images", type=int, default=16,
                     help="val images for the post-training mAP report")
     ap.add_argument("--eval-shards", type=int, default=1,
-                    help="shard count of the mAP report (only 1 is ported: ROADMAP item 7)")
+                    help="shard count of the mAP report (repro_torch.eval.sharded; "
+                         "bit-identical to 1 shard)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--full-config", action="store_true",
                     help="the paper's 576x1024 snn-det instead of the demo config")
     args = ap.parse_args(argv)
-    if args.eval_shards > 1:
-        raise NotImplementedError(
-            f"--eval-shards {args.eval_shards}: sharded evaluation is not ported yet "
-            "(ROADMAP.md queue 1 item 7); use --eval-shards 1"
-        )
     source = dd.parse_dataset_spec(args.dataset)
     dev = resolve_device(args.device)
 
@@ -121,7 +118,8 @@ def main(argv=None) -> dict:
                         "pruned+quant": (cfg, q)}.items():
         r = harness.evaluate_detector(
             harness.compile_eval_detector(c, p, bn, device=dev),
-            n_images=args.eval_images, source=source)
+            n_images=args.eval_images, source=source,
+            sharded=args.eval_shards if args.eval_shards > 1 else None)
         maps[tag] = r["map"]
         aps = ", ".join(f"{a:.3f}" for a in r["per_class_ap"])
         print(f"mAP@0.5 [{tag}] {r['map']:.3f} (per-class {aps}) "

@@ -20,17 +20,24 @@ a ``step_*`` directory (not ``.tmp``) that holds its manifest.
   thread; :func:`wait_pending` joins the writers and re-raises the first
   failed write, and :func:`gc_old` joins a writer before deleting its step.
 * :func:`restore` fills a template tree, checking every leaf's shape.
-
-Single-controller only: the multi-host striped save (JAX's
-``_write_sharded``) is ROADMAP queue 1 item 7; a striped checkpoint, once
-committed, reads as any other.
+* Multi-controller: ``save(..., ctx=)`` under a multi-process launch
+  stripes LEAF OWNERSHIP over the hosts (leaf i -> host i % n_hosts). Every
+  host writes only the leaves it owns into the shared staging directory and
+  posts a token-stamped ``host_N.done`` receipt; host 0, once it holds
+  every receipt, writes the manifest and the ``shard_manifest.json``
+  sidecar (who wrote what) and performs the one rename-commit. Leaves stay
+  whole (a data-parallel state is the same on every host), so a striped
+  checkpoint restores through :func:`restore` in one process, and in the
+  JAX package's, like any other.
 """
 from __future__ import annotations
 
 import json
 import os
+import secrets
 import shutil
 import threading
+import time
 from dataclasses import dataclass
 from typing import Any, Mapping, Optional
 
@@ -38,8 +45,13 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tu
+from repro_torch.distributed import runtime
 
 _RESERVED_FILES = ("manifest.json", "shard_manifest.json", "staging.json")
+
+# how long one host waits on the others during a striped save before
+# declaring the job wedged (a crashed peer, not a slow disk)
+_HANDSHAKE_TIMEOUT_S = float(os.environ.get("REPRO_CKPT_HANDSHAKE_TIMEOUT", "120"))
 
 
 @dataclass(frozen=True)
@@ -61,14 +73,32 @@ def _host_array(leaf) -> np.ndarray:
     return np.array(leaf)
 
 
+def _leaf_meta(leaf) -> tuple[list, str]:
+    """(shape, dtype) as the manifest records the leaf :func:`_host_array`
+    would write, without copying it."""
+    if isinstance(leaf, torch.Tensor):
+        dt = torch.float32 if leaf.dtype == torch.bfloat16 else leaf.dtype
+        return list(leaf.shape), str(torch.empty((), dtype=dt).numpy().dtype)
+    arr = np.asarray(leaf)
+    return list(arr.shape), str(arr.dtype)
+
+
 def save(root: str, step: int, tree: Any, *,
-         extra_files: Optional[Mapping[str, bytes]] = None) -> str:
+         extra_files: Optional[Mapping[str, bytes]] = None, ctx=None) -> str:
     """Synchronous atomic save. Returns the committed directory.
 
     ``extra_files``: {filename: bytes} sidecars (e.g. a config json) written
     into the staging dir before the rename, so they commit with the
-    checkpoint."""
+    checkpoint.
+
+    ``ctx``: the :class:`repro_torch.distributed.runtime.DistributedContext`
+    (default: the process-wide one). Multi-controller: EVERY host calls save
+    with the same arguments; each copies to the host and writes only the
+    leaves it owns, and host 0 commits (:func:`_write_sharded`)."""
+    ctx = ctx or runtime.get_context()
     paths, leaves = tu.flatten_with_paths(tree)
+    if ctx.is_multi_controller:
+        return _write_sharded(root, step, paths, leaves, extra_files, ctx)
     return _write(root, step, paths, [_host_array(l) for l in leaves], extra_files)
 
 
@@ -91,7 +121,15 @@ def save_async(root: str, step: int, tree: Any, *,
                extra_files: Optional[Mapping[str, bytes]] = None) -> threading.Thread:
     """Copy every leaf to the host (card tensors included, before the thread
     starts), then commit on a background thread. A failed write is recorded
-    and re-raised by the next :func:`wait_pending` — call it before exit."""
+    and re-raised by the next :func:`wait_pending` — call it before exit.
+
+    Single-controller only: the striped save's cross-host handshake must
+    not run on a background thread beside the step loop's collectives.
+    Multi-controller jobs use :func:`save`."""
+    if runtime.get_context().is_multi_controller:
+        raise NotImplementedError(
+            "save_async is single-controller only — multi-controller jobs must use the "
+            "synchronous save(..., ctx=ctx) striped protocol")
     paths, leaves = tu.flatten_with_paths(tree)
     host = [_host_array(l) for l in leaves]
     pending = _PendingSave(root=os.path.abspath(root), step=step, thread=None)
@@ -159,6 +197,94 @@ def _json_atomic(path: str, obj) -> None:
         f.flush()
         os.fsync(f.fileno())
     os.replace(swap, path)
+
+
+def _read_json(path: str):
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (FileNotFoundError, json.JSONDecodeError):
+        return None
+
+
+def _wait_for(pred, desc: str, ctx) -> None:
+    deadline = time.monotonic() + _HANDSHAKE_TIMEOUT_S
+    while not pred():
+        if time.monotonic() > deadline:
+            raise RuntimeError(
+                f"[{ctx.describe()}] striped-checkpoint handshake timed out after "
+                f"{_HANDSHAKE_TIMEOUT_S:.0f}s waiting for {desc}")
+        time.sleep(0.05)
+
+
+def _write_sharded(root: str, step: int, paths, leaves, extra_files, ctx) -> str:
+    """Multi-controller save over a SHARED filesystem, the JAX package's
+    protocol (token-stamped, so a retried save never consumes an earlier
+    attempt's receipts):
+
+      1. host 0 resets the staging dir and posts ``staging.json`` with a
+         fresh token; the peers wait for it.
+      2. every host writes the leaves it OWNS (leaf i -> host i % n_hosts)
+         and posts a ``host_N.done`` receipt echoing the token.
+      3. host 0 collects every receipt, writes ``shard_manifest.json``, the
+         extra sidecars and ``manifest.json``, then rename-commits.
+      4. the peers wait for the committed dir to carry their token.
+
+    Each wait gives up after REPRO_CKPT_HANDSHAKE_TIMEOUT (default 120 s),
+    naming the waiting host."""
+    final = os.path.join(root, f"step_{step:09d}")
+    tmp = final + ".tmp"
+    h, n = ctx.host_id, ctx.n_hosts
+    staging = os.path.join(tmp, "staging.json")
+
+    if h == 0:
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        token = secrets.token_hex(8)
+        _json_atomic(staging, {"step": step, "token": token, "n_hosts": n})
+    else:
+        _wait_for(lambda: (_read_json(staging) or {}).get("step") == step,
+                  f"host 0 to open staging for step {step}", ctx)
+        token = _read_json(staging)["token"]
+
+    owned_files = []
+    for i, leaf in enumerate(leaves):
+        if i % n != h:
+            continue
+        fname = f"leaf_{i:05d}.npy"
+        np.save(os.path.join(tmp, fname), _host_array(leaf))
+        owned_files.append(fname)
+    _json_atomic(os.path.join(tmp, f"host_{h}.done"),
+                 {"token": token, "host": h, "files": owned_files})
+
+    if h == 0:
+        def receipts():
+            got = [_read_json(os.path.join(tmp, f"host_{p}.done")) for p in range(n)]
+            return all(r is not None and r.get("token") == token for r in got)
+
+        _wait_for(receipts, "peer hosts' leaf receipts", ctx)
+        _json_atomic(os.path.join(tmp, "shard_manifest.json"), {
+            "token": token,
+            "n_hosts": n,
+            "striping": "leaf i -> host i % n_hosts",
+            "hosts": {str(p): _read_json(os.path.join(tmp, f"host_{p}.done"))["files"]
+                      for p in range(n)},
+        })
+        _write_extras(tmp, extra_files)
+        manifest = {"step": step, "n_hosts": n, "leaves": []}
+        for i, (p, leaf) in enumerate(zip(paths, leaves)):
+            shape, dtype = _leaf_meta(leaf)
+            manifest["leaves"].append({"path": p, "file": f"leaf_{i:05d}.npy", "shape": shape,
+                                       "dtype": dtype, "host": i % n})
+        _json_atomic(os.path.join(tmp, "manifest.json"), manifest)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)  # the commit barrier: the peers unblock on it
+    else:
+        _wait_for(lambda: (_read_json(os.path.join(final, "shard_manifest.json")) or {})
+                  .get("token") == token, f"host 0 to commit step {step}", ctx)
+    return final
 
 
 def _committed_steps(root: str) -> list[int]:

@@ -1,14 +1,16 @@
 """Fault tolerance for the training loop: a heartbeat file, a straggler
 monitor, and a supervisor that restarts from the last committed checkpoint.
 
-Counterpart of ``repro/train/ft.py``, single-controller (the multi-host
-context is ROADMAP queue 1 item 7):
+Counterpart of ``repro/train/ft.py``:
 
 * :class:`Heartbeat` — a progress file (step + wall time), replaced
   atomically; a stalled heartbeat marks a hung or dead worker.
 * :class:`Supervisor` — runs the step function, checkpoints every
   ``save_every`` steps and at the end, and on any exception restores the
   last committed step and carries on; it gives up after ``max_restarts``.
+  Under a multi-controller context it saves through the striped protocol
+  (``checkpoint.save(ctx=)``), only host 0 collects old steps, and a run
+  that gives up names the host it failed on.
 * :class:`StragglerMonitor` — an EWMA of step times; a step slower than
   ``threshold`` × the EWMA is flagged.
 """
@@ -20,9 +22,8 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
+from repro_torch.distributed import runtime
 from repro_torch.train import checkpoint as ckpt
-
-HOST = "host 0/1"  # the single controller's coordinates in a give-up message
 
 
 class Heartbeat:
@@ -71,7 +72,10 @@ class StragglerMonitor:
 
 @dataclass
 class Supervisor:
-    """Bounded-retry restart-from-last-good training supervisor."""
+    """Bounded-retry restart-from-last-good training supervisor.
+
+    ``ctx``: the :class:`repro_torch.distributed.runtime.DistributedContext`
+    (default: the process-wide one)."""
 
     ckpt_root: str
     max_restarts: int = 3
@@ -80,11 +84,18 @@ class Supervisor:
     heartbeat: Optional[Heartbeat] = None
     straggler: StragglerMonitor = field(default_factory=StragglerMonitor)
     restarts: int = 0
+    ctx: Any = None
+
+    def _context(self):
+        if self.ctx is None:
+            self.ctx = runtime.get_context()
+        return self.ctx
 
     def _give_up(self, e: Exception):
-        """Re-raise with the host's coordinates prepended, keeping the
+        """Re-raise with this host's coordinates prepended, keeping the
         original exception type where its constructor allows."""
-        msg = f"[{HOST}] training gave up after {self.restarts - 1} restarts: {e}"
+        msg = (f"[{self._context().describe()}] training gave up after "
+               f"{self.restarts - 1} restarts: {e}")
         try:
             exc = type(e)(msg)
         except Exception:  # noqa: BLE001 — exotic exception signature
@@ -119,8 +130,10 @@ class Supervisor:
                 if self.heartbeat:
                     self.heartbeat.beat(step)
                 if (step + 1) % self.save_every == 0 or step + 1 == n_steps:
-                    ckpt.save(self.ckpt_root, step, state)
-                    ckpt.gc_old(self.ckpt_root, keep=self.keep)
+                    ctx = self._context()
+                    ckpt.save(self.ckpt_root, step, state, ctx=ctx)
+                    if ctx.host_id == 0:
+                        ckpt.gc_old(self.ckpt_root, keep=self.keep)
                 step += 1
             except Exception as e:
                 self.restarts += 1

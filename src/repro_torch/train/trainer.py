@@ -15,8 +15,16 @@ The step gives up its input state: the new parameters and moments are
 written into its tensors, as the JAX launcher's jitted step donates its
 state. A caller that keeps an old state clones it first.
 
-The sharding metadata (``grad_shardings``, ``batch_sharding``,
-``train_state_axes``) is ROADMAP queue 1 items 9d and 7.
+Data parallel (``make_train_step(ctx=)`` under a multi-controller
+context, the counterpart of JAX's ``batch_sharding``): each host computes
+the gradients of its own rows, and the gradient tree and the loss are
+averaged over the hosts (``collectives.allreduce_mean_``) after the
+microbatch accumulation and before the compression, the clipping and the
+update — the order JAX's psum-then-compress gives. Every host then applies
+the same update to the same state.
+
+The sharding metadata (``grad_shardings``, ``train_state_axes``) is ROADMAP
+queue 1 item 9d.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch import tree as tu
+from repro_torch.distributed import collectives
 from repro_torch.train import optimizer as opt
 
 
@@ -110,19 +119,30 @@ def make_train_step(
     grad_compress: bool = False,
     grad_shardings: Any = None,
     batch_sharding: Any = None,
+    ctx=None,
 ):
     """Returns ``train_step(state, batch) -> (new_state, metrics)``; the
     metrics are ``loss``, ``grad_norm``, ``lr`` and ``step``. ``batch`` is a
-    dict of (B, ...) tensors on the parameters' device."""
+    dict of (B, ...) tensors on the parameters' device: this host's rows.
+
+    ``ctx``: a :class:`repro_torch.distributed.runtime.DistributedContext`.
+    Multi-controller: the gradients and the loss are averaged over the
+    hosts before the update, so every host steps the same state."""
     if grad_shardings is not None:
         raise NotImplementedError("grad_shardings: sharding metadata is not ported yet "
                                   "(ROADMAP.md queue 1 item 9d)")
     if batch_sharding is not None:
-        raise NotImplementedError("batch_sharding: the multi-controller global batch is not "
-                                  "ported yet (ROADMAP.md queue 1 item 7)")
+        raise NotImplementedError("batch_sharding: a torch step takes no batch sharding; "
+                                  "pass ctx= (a multi-controller DistributedContext) for "
+                                  "the data-parallel step")
+    data_parallel = ctx is not None and ctx.is_multi_controller
 
     def train_step(state: TrainState, batch: dict):
         loss, grads = loss_and_grads(loss_fn, state.params, batch, n_microbatch=n_microbatch)
+        if data_parallel:
+            loss = loss.reshape(1)
+            collectives.allreduce_mean_(tu.leaves(grads) + [loss], ctx)
+            loss = loss[0]
         new_ef = None
         if grad_compress and state.ef is not None:
             pairs = tu.tree_map(opt.compress_decompress, grads, state.ef.residual)

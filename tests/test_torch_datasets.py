@@ -355,17 +355,20 @@ def test_loader_imports_no_jax():
 
 def test_train_detector_trains_on_the_coco_fixture(tmp_path, capsys):
     """``train_detector --dataset coco:...`` trains on the letterboxed
-    fixture and scores its 4 images; ``--eval-shards 2`` raises, naming
-    ROADMAP item 7."""
+    fixture and scores its 4 images; with ``--eval-shards 2`` the sharded
+    score of the committed weights equals one process's."""
+    from repro_torch.eval import harness
     from repro_torch.launch import train_detector
 
+    spec = f"coco:{FIXTURE_JSON}"
     out = train_detector.main(["--device", "cpu", "--steps", "8", "--batch", "2",
-                               "--eval-images", "16", "--dataset", f"coco:{FIXTURE_JSON}",
+                               "--eval-images", "16", "--dataset", spec, "--eval-shards", "2",
                                "--ckpt", str(tmp_path)])
     text = capsys.readouterr().out
     assert "train_detector OK" in text and text.count("on 4 val images") == 2
     assert out["losses"][-1] < out["losses"][0]
     assert os.path.isdir(out["detector_ckpt"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        train_detector.main(["--device", "cpu", "--eval-shards", "2",
-                             "--ckpt", str(tmp_path / "other")])
+    cfg, p, b, _ = harness.restore_detector_checkpoint(out["detector_ckpt"], device="cpu")
+    single = harness.evaluate_detector(harness.compile_eval_detector(cfg, p, b, device="cpu"),
+                                       n_images=16, source=dd.parse_dataset_spec(spec))
+    assert single["n_images"] == 4 and single["map"] == out["map"]["pruned+quant"]

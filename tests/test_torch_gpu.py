@@ -10,7 +10,9 @@ a converted detector's fused launches at T=128 against the plain version,
 and the COCO fixture feeding ``evaluate_detector``; LM token serving (the
 smoke configs on the card against the CPU, qwen1.5-0.5b at full width); LM
 training (one train step at the smoke configs on the card against the CPU,
-the training launcher at qwen1.5-0.5b's full width).
+the training launcher at qwen1.5-0.5b's full width); two processes sharing
+the card in one sharded detector evaluation; and, on four cards, the NCCL
+branch (one process per card) and the single-process card gather.
 Needs a CUDA device and nothing of JAX; skips without a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -776,3 +778,171 @@ def test_lm_train_launcher_full_width_on_the_card(cuda, tmp_path):
     losses = json.loads((tmp_path / "losses.json").read_text())
     assert len(losses) == 3 and all(np.isfinite(losses)) and losses[-1] < losses[0]
     assert out["state"].params["embed"]["tok"].dtype == torch.bfloat16
+
+
+@pytest.mark.gpu
+def test_sharded_eval_two_processes_on_the_card(cuda, tmp_path):
+    """Two processes on the one card (gloo, host-staged) walk their own
+    shards of a smoke-config detector through the fused kernel: each
+    process's report is identical to the single-process report on the card,
+    and each launched the kernel."""
+    import json
+    import socket
+    import subprocess
+    import sys
+
+    from repro_torch.eval import harness
+    from repro_torch.eval import sharded as se
+
+    cfg = dataclasses.replace(smoke_config(), conv_exec="pallas")
+    params, bn, _ = demo_weights(cfg, device="cpu")
+    root = str(tmp_path / "det")
+    harness.save_detector_checkpoint(root, 0, params, bn, cfg)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    body = """
+import json, sys
+from repro_torch import backend
+from repro_torch.distributed import runtime
+from repro_torch.eval import harness
+from repro_torch.eval import sharded as se
+ctx = runtime.initialize(coordinator_address="127.0.0.1:%d", num_processes=2,
+                         process_id=int(sys.argv[1]))
+cfg, p, b, _ = harness.restore_detector_checkpoint(%r, device=ctx.device)
+det = harness.compile_eval_detector(cfg, p, b, device=ctx.device)
+backend.reset_launches()
+rep = harness.evaluate_detector(det, n_images=8, sharded=se.ShardedEvalConfig(n_shards=4, batch=2),
+                                ctx=ctx)
+print("REPORT=" + json.dumps({**rep, "launches": dict(backend.launches),
+                              "backend": ctx.backend}))
+runtime.shutdown()
+""" % (port, root)
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    procs = [subprocess.Popen([sys.executable, "-c", body, str(pid)],
+                              env={**os.environ, "PYTHONPATH": src}, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for pid in range(2)]
+    outs = []
+    for p in procs:
+        out, err = p.communicate(timeout=300)
+        assert p.returncode == 0, out + err[-4000:]
+        outs.append(json.loads(out.split("REPORT=")[1]))
+    cfg_, p_, b_, _ = harness.restore_detector_checkpoint(root, device=cuda)
+    ref = harness.evaluate_detector(harness.compile_eval_detector(cfg_, p_, b_, device=cuda),
+                                    n_images=8, batch=2)
+    for rep in outs:
+        assert rep["gather"] == "process" and rep["backend"] == "gloo"
+        assert se.reports_identical(rep, ref) and rep["launches"][fp.KERNEL] > 0
+
+
+_FOUR_CARD_CHILD = """
+import json, sys
+import numpy as np
+import torch
+from repro_torch import backend
+from repro_torch.distributed import collectives as C
+from repro_torch.distributed import runtime
+from repro_torch.eval import harness
+from repro_torch.eval import sharded as se
+a = json.loads(sys.argv[1])
+ctx = runtime.initialize(coordinator_address=a["addr"], num_processes=4, process_id=a["pid"])
+out = {"describe": ctx.describe(), "device": str(ctx.device)}
+g, total = C.eval_stats_allgather({"rank": np.array([[ctx.host_id]], np.int32),
+                                   "even": np.array([[ctx.host_id % 2 == 0]])},
+                                  np.ones((1, 2), np.int32), ctx)
+out.update(ranks=g["rank"].reshape(-1).tolist(), even=g["even"].reshape(-1).tolist(),
+           total=total.tolist())
+pod, data = C.subgroups(ctx, n_pods=2)
+x = (torch.arange(24, dtype=torch.float32).reshape(4, 6) / 7.0).to(ctx.device)
+out["int8_err"] = float((C.int8_psum(ctx, data)(x) - 2 * x).abs().max())
+out["int8_bound"] = 4 * float(x.abs().max()) / 127
+z = C.hierarchical_psum(ctx, pod, data)(x)
+out["hier_within_1e-5"] = bool(((z - 4 * x).abs() <= 1e-5 * (4 * x).abs()).all())
+w = [torch.full((1000,), float(ctx.host_id), device=ctx.device),
+     torch.full((7,), float(ctx.host_id), device=ctx.device, dtype=torch.bfloat16)]
+C.allreduce_mean_(w, ctx)
+out["mean"] = [float(w[0][0]), float(w[1][0])]
+cfg, p, b, _ = harness.restore_detector_checkpoint(a["ckpt"], device=ctx.device)
+det = harness.compile_eval_detector(cfg, p, b, device=ctx.device)
+backend.reset_launches()
+out["report"] = harness.evaluate_detector(det, n_images=16, ctx=ctx,
+                                          sharded=se.ShardedEvalConfig(n_shards=4, batch=2))
+out["launches"] = dict(backend.launches)
+ctx.barrier("done")
+print("CHILD=" + json.dumps(out), flush=True)
+runtime.shutdown()
+"""
+
+
+@pytest.mark.gpu
+def test_four_cards_nccl_and_card_gather(cuda, tmp_path):
+    """With four cards: the sharded reduction gathers across the cards in
+    one process (``gather == "mesh"``) as the host does; four processes,
+    one per card, take the NCCL branch, and their collectives (the eval
+    gather, ``int8_psum``/``hierarchical_psum`` on a 2 × 2 grid at
+    ``tests/test_distributed.py``'s bounds, the gradient mean) and a
+    sharded detector evaluation through the fused kernel agree with one
+    process. Skips with fewer cards."""
+    import json
+    import socket
+    import subprocess
+    import sys
+
+    from repro_torch.eval import detection_map as dm
+    from repro_torch.eval import harness
+    from repro_torch.eval import sharded as se
+
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    rng = np.random.default_rng(11)
+    preds, gts = [], []
+    for _ in range(10):
+        g = int(rng.integers(0, 5))
+        g_boxes = rng.uniform(0.2, 0.8, (g, 4)).astype(np.float32)
+        g_cls = rng.integers(0, 3, g)
+        gts.append({"boxes": g_boxes, "classes": g_cls})
+        extra = int(rng.integers(0, 6))
+        boxes = np.concatenate([g_boxes + rng.normal(0, 0.02, g_boxes.shape).astype(np.float32),
+                                rng.uniform(0.2, 0.8, (extra, 4)).astype(np.float32)])
+        preds.append({"boxes": boxes, "classes": np.concatenate([g_cls, rng.integers(0, 3, extra)]),
+                      "scores": np.round(rng.uniform(0, 1, len(boxes)), 1).astype(np.float32)})
+    ref = dm.evaluate_detections(preds, gts, num_classes=3)
+    assert ref["map"] > 0
+    for k in (2, 4):
+        got = se.evaluate_predictions_sharded(preds, gts, num_classes=3,
+                                              eval_cfg=se.ShardedEvalConfig(n_shards=k))
+        assert got["gather"] == "mesh" and se.reports_identical(got, ref), k
+
+    cfg = dataclasses.replace(smoke_config(), conv_exec="pallas")
+    params, bn, _ = demo_weights(cfg, device="cpu")
+    root = str(tmp_path / "det")
+    harness.save_detector_checkpoint(root, 0, params, bn, cfg)
+    _, p_, b_, _ = harness.restore_detector_checkpoint(root, device=cuda)
+    single = harness.evaluate_detector(harness.compile_eval_detector(cfg, p_, b_, device=cuda),
+                                       n_images=16, batch=2)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _FOUR_CARD_CHILD,
+         json.dumps({"addr": f"127.0.0.1:{port}", "pid": pid, "ckpt": root})],
+        env={**os.environ, "PYTHONPATH": src}, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for pid in range(4)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0, out + err[-4000:]
+            outs.append(json.loads(out.split("CHILD=")[1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for pid, o in enumerate(outs):
+        assert o["describe"] == f"host {pid}/4, nccl" and o["device"] == f"cuda:{pid}"
+        assert o["ranks"] == [0, 1, 2, 3] and o["even"] == [True, False, True, False]
+        assert o["total"] == [4, 4] and o["mean"] == [1.5, 1.5]
+        assert o["int8_err"] <= o["int8_bound"] and o["hier_within_1e-5"]
+        assert o["report"]["gather"] == "process" and se.reports_identical(o["report"], single)
+        assert o["launches"][fp.KERNEL] > 0

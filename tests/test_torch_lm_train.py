@@ -508,16 +508,30 @@ def test_launcher_ckpt_resumes_bit_equal(tmp_path, monkeypatch):
 
 
 def test_launcher_coordinator_raises():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        launch_train.main(["--arch", "qwen1.5-0.5b", "--device", "cpu", "--coordinator",
-                           "127.0.0.1:9876", "--num-processes", "2", "--process-id", "0"])
+    """``--coordinator`` joins a process group (here a world of one, so no
+    peer is needed), trains through it, and leaves the group on the way out
+    (``tests/test_torch_multihost.py`` holds two processes to one)."""
+    import socket
+
+    from repro_torch.distributed import runtime
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    argv = ["--arch", "qwen1.5-0.5b", "--device", "cpu", "--steps", "11", "--batch", "8",
+            "--seq", "16"]
+    got = launch_train.main(argv + ["--coordinator", f"127.0.0.1:{port}",
+                                    "--num-processes", "1", "--process-id", "0"])
+    assert not torch.distributed.is_initialized()
+    assert runtime.get_context().n_hosts == 1
+    assert got["steps_run"] == list(range(11)) and got["losses"][-1] < got["losses"][0]
 
 
 def test_make_train_step_refuses_sharding_metadata():
     _, ocfg = _ocfg()
     with pytest.raises(NotImplementedError, match="item 9d"):
         trainer.make_train_step(None, ocfg, grad_shardings={})
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="ctx="):
         trainer.make_train_step(None, ocfg, batch_sharding=object())
 
 

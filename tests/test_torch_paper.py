@@ -326,8 +326,18 @@ def test_run_pipeline_on_cpu_end_to_end(tmp_path):
 
 
 def test_run_pipeline_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 7"):
-        harness.run_pipeline(_block_demo(harness), steps=1, eval_shards=2, device="cpu")
+    """``eval_shards=2`` routes every evaluation through the sharded path
+    and gives the stage and schedule reports of ``eval_shards=1``; a
+    compressed executor still needs a block-conv config."""
+    kw = dict(steps=1, finetune_steps=1, batch=2, eval_images=4, conv_exec="pallas",
+              verbose=False, device="cpu")
+    one = harness.run_pipeline(smoke_config(CONFIG), **kw)
+    two = harness.run_pipeline(smoke_config(CONFIG), eval_shards=2, **kw)
+    for name in one.stages:
+        assert two.stages[name]["n_shards"] == 2 and two.stages[name]["gather"] == "host"
+        assert se.reports_identical(two.stages[name], one.stages[name]), name
+    for name in one.schedules:
+        assert se.reports_identical(two.schedules[name], one.schedules[name]), name
     with pytest.raises(ValueError, match="block-conv border"):
         harness.run_pipeline(harness.demo_config(), steps=1, conv_exec="pallas",
                              device="cpu")
@@ -461,16 +471,29 @@ def test_eval_map_ckpt_dir_then_checkpoint(tmp_path, monkeypatch, capsys):
     assert again["map"] == res["stages"]["qat"]["map"]
     assert again["per_class_ap"] == res["stages"]["qat"]["per_class_ap"]
     assert again["n_gt"] == res["stages"]["qat"]["n_gt"]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        eval_map.main(["--checkpoint", str(ckpts), "--shards", "2", "--device", "cpu"])
+    sharded = eval_map.run_checkpoint(str(ckpts), eval_images=2, shards=2, out_json="",
+                                      device="cpu")
+    assert sharded["sharded_parity"]["bit_identical"] and sharded["config"]["eval_shards"] == 2
     assert sorted(os.listdir(work)) == ["BENCH_torch_eval_ckpt.json", "pipe.json"]
-    capsys.readouterr()
+    assert "BIT-IDENTICAL" in capsys.readouterr().out
 
 
-def test_eval_map_refuses_what_is_not_ported(tmp_path, monkeypatch):
+def test_eval_map_refuses_what_is_not_ported(tmp_path, monkeypatch, smoke_ckpt):
+    """``--shards`` fails the run unless the sharded report is
+    bit-identical to the single-process one; a dataset spec naming a
+    missing file raises before anything is trained or written."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        eval_map.main(["--fast", "--shards", "2", "--device", "cpu"])
+    real = harness.evaluate_detector
+
+    def off_by_one(det, **kw):  # the single-process re-score disagrees
+        rep = real(det, **kw)
+        return rep if kw.get("sharded") else {**rep, "n_pred": [n + 1 for n in rep["n_pred"]]}
+
+    monkeypatch.setattr(harness, "evaluate_detector", off_by_one)
+    with pytest.raises(SystemExit, match="not bit-identical"):
+        eval_map.main(["--checkpoint", smoke_ckpt, "--fast", "--shards", "2", "--device",
+                       "cpu", "--out-json", ""])
+    monkeypatch.setattr(harness, "evaluate_detector", real)
     # the COCO loader is ported: a spec naming a missing file raises before
     # anything is trained or written
     with pytest.raises(FileNotFoundError, match="x.json"):
@@ -518,9 +541,17 @@ def test_serve_eval_map_gate_fails_on_a_mismatch(smoke_ckpt, monkeypatch, capsys
 
 
 def test_serve_eval_map_flags_refuse_what_is_not_ported(smoke_ckpt, capsys):
-    with pytest.raises(NotImplementedError, match="item 7"):
-        serve.main(["--arch", "snn-det", "--eval-map", "--eval-shards", "2",
-                    "--checkpoint", smoke_ckpt, "--device", "cpu"])
+    # --eval-shards 2 scores the served detections through the sharded
+    # reduction, identically to --eval-shards 1, and passes the harness gate
+    argv = ["--arch", "snn-det", "--eval-map", "--checkpoint", smoke_ckpt, "--requests", "6",
+            "--device", "cpu"]
+    serve.main(argv)
+    one = capsys.readouterr().out
+    serve.main(argv + ["--eval-shards", "2"])
+    two = capsys.readouterr().out
+    score = re.compile(r"served-detections mAP@0.5 (\S+) over 6 val frames")
+    assert score.search(one).group(1) == score.search(two).group(1)
+    assert "(2 shards, host gather)" in two and "BIT-IDENTICAL" in two
     # the VOC loader is ported: a spec naming a missing directory raises
     missing = os.path.join(smoke_ckpt, "no_such_voc_dir")
     with pytest.raises(FileNotFoundError, match="no_such_voc_dir"):

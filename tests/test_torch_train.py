@@ -561,13 +561,20 @@ def test_detection_map_matches_jax():
 
 
 def test_evaluate_detector_sharded_raises():
+    """``sharded=2`` scores as one shard does; a forced card gather without
+    the cards raises, naming the devices."""
+    from repro_torch.eval import sharded as se
+
     cfg = _small_cfg()
     params, bn = sy.init_params(cfg, device="cpu")
     det = harness.compile_eval_detector(cfg, params, bn, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        harness.evaluate_detector(det, n_images=2, sharded=2)
     r = harness.evaluate_detector(det, n_images=2, batch=1)
     assert r["n_images"] == 2 and r["split"] == "val"
+    got = harness.evaluate_detector(det, n_images=2, sharded=2)
+    assert got["n_shards"] == 2 and got["split"] == "val" and se.reports_identical(got, r)
+    with pytest.raises(ValueError, match="devices"):
+        harness.evaluate_detector(det, n_images=2, sharded=se.ShardedEvalConfig(
+            n_shards=2, use_device_mesh=True))
 
 
 # -------------------------------------------------------------------- CLI --
