@@ -154,7 +154,8 @@ l. qwen1.5-0.5b (16 requests) and olmoe-1b-7b (8 requests) at their
    first step whose top-2 margin is below that bound (reported). The
    launch counts, set to 0 before the phase, read 0 after it. The serve
    CLI (``--arch qwen1.5-0.5b --requests 8``) prints its tokens/s line, and
-   ``--arch rwkv6-3b`` exits non-zero naming ROADMAP queue 1 item 9c.
+   ``--arch whisper-small`` exits non-zero naming ROADMAP R10 (the Engine
+   does not serve the vlm and audio families).
 
 LM training (``repro_torch.train.trainer``, ``repro_torch.launch.train``),
 no hand-written kernel on its path:
@@ -203,6 +204,29 @@ n. The parent saves ``demo_weights(CONFIG)`` (576×1024, pruned 0.8) as a
    ``shard_manifest.json`` listing both hosts, resumed by one process to
    step 8: the restored state's per-leaf checksums equal to both hosts'
    final state's.
+
+The other LM families (``repro_torch.models``: rwkv6, mamba2 and the
+hybrid, whisper, llava), no hand-written kernel on their path:
+
+o. At ``smoke_config`` (f32, TF32 off) the card against the port's CPU run
+   for rwkv6-3b and zamba2-7b through ``Engine`` (4 slots, 7 requests) and
+   for whisper-small and llava-next-34b through their API (prefill with
+   seeded frames or patches, then greedy ``decode_fn`` steps): tokens
+   equal, logits within 4e-3 of the largest |logit| (phase l's bound for
+   paths through the bf16 cache; the reading is printed).
+   At full width in bf16 with seeded weights: rwkv6-3b and zamba2-7b
+   through ``Engine`` with phase l's traffic (8 slots × 512 rows, 16
+   requests of 3–200 prompt tokens, 32 new tokens; exact-length prefill,
+   the entries kept reported); whisper-small through its API (batch 8,
+   frames (8, 1500, 768), 4-token prompts, 32 new tokens; the encoder and
+   ``cross_kv`` ms); llava-next-34b through its API (batch 1, 2880 patches
+   of width 1024, a 64-token prompt, 16 new tokens) at its 60 layers when
+   they fit beside the run's headroom, else with ``n_layers`` cut (printed
+   with the measured peak). Each row: tokens/s, prefill ms, the decode
+   step's host and device ms and busy share (``torch.profiler``), peak
+   memory, the bytes of the params (beside ``n_params()``'s count) and of
+   the cache or state. The launch counts, set to 0 before the phase, read
+   0 after it.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error and times.
@@ -1804,14 +1828,15 @@ def lm_logits_recorder(core) -> dict:
     return rec
 
 
-def lm_compare(got: dict, want: dict, got_out: dict, want_out: dict) -> dict:
+def lm_compare(got: dict, want: dict, got_out: dict, want_out: dict,
+               tol: float = LM_LOGITS_TOL) -> dict:
     """Two runs' logits and tokens, request by request. Tokens are compared
     up to the first step whose top-2 margin (in the reference run) is below
     the tolerance, logits up to and including it; that step is reported."""
     worst, low_margin = 0.0, {}
     for rid, rows in want.items():
         scale = max(float(r.abs().max()) for r in rows)
-        bound = LM_LOGITS_TOL * scale
+        bound = tol * scale
         for k, (a, b) in enumerate(zip(got[rid], rows)):
             err = float((a - b).abs().max())
             worst = max(worst, err / scale)
@@ -1827,17 +1852,19 @@ def lm_compare(got: dict, want: dict, got_out: dict, want_out: dict) -> dict:
         else:
             if got_out[rid] != want_out[rid]:
                 raise AssertionError(f"request {rid}: tokens differ")
-    return {"max_rel_err": worst, "tol": LM_LOGITS_TOL,
+    return {"max_rel_err": worst, "tol": tol,
             "first_low_margin_step": low_margin or None,
             "tokens_equal": all(got_out[r] == want_out[r] for r in want_out)}
 
 
 def lm_serve_run(dev, arch: str, n_requests: int, tag) -> dict:
     """One full-width bf16 model served by ``Engine``: tokens/s over the run,
-    prefill device ms per bucket and decode-step device/host ms by CUDA
-    events, the busy share of a steady 8-slot decode step (``torch.profiler``
-    kernel time over the step's wall time), peak memory while serving (and
-    while drawing the weights); for an MoE the capacity overflow of its
+    prefill device ms per bucket (per prompt length where prefill is
+    exact-length, the recurrent families) and decode-step device/host ms by
+    CUDA events, the busy share of a steady 8-slot decode step
+    (``torch.profiler`` kernel time over the step's wall time), peak memory
+    while serving (and while drawing the weights), the bytes of the params
+    and of the cache or state; for an MoE the capacity overflow of its
     largest prefill bucket."""
     import copy
 
@@ -1951,8 +1978,10 @@ def lm_serve_run(dev, arch: str, n_requests: int, tag) -> dict:
     per_bucket = {}
     for length, e0, e1 in prefill_ev:
         per_bucket.setdefault(length, []).append(e0.elapsed_time(e1))
-    if sorted(per_bucket) != list(LM_BUCKETS):
+    if core._bucketed and sorted(per_bucket) != list(LM_BUCKETS):
         raise AssertionError(f"{arch}: prefill buckets {sorted(per_bucket)}")
+    if not core._bucketed and sorted(per_bucket) != sorted(set(lengths)):
+        raise AssertionError(f"{arch}: exact-length prefill entries {sorted(per_bucket)}")
 
     # one steady 8-slot decode step: its wall ms (synchronised) and its
     # kernels by torch.profiler. (A step issues hundreds of launches, which
@@ -1987,7 +2016,10 @@ def lm_serve_run(dev, arch: str, n_requests: int, tag) -> dict:
            "decode_step_busy_share": None if by_kernel is None
            else by_kernel["total_ms"] / wall_ms,
            "decode_step_top_kernels": None if by_kernel is None else by_kernel["kernels"][:8],
-           "init_peak_memory_gib": init_peak / 2**30, "peak_memory_gib": peak / 2**30}
+           "init_peak_memory_gib": init_peak / 2**30, "peak_memory_gib": peak / 2**30,
+           "param_bytes": tree_bytes(params), "cache_bytes": tree_bytes(core.cache),
+           "bucketed_prefill": core._bucketed,
+           "prefill_entries_kept": len(core._prefill_cache)}
     if cfg.family == "moe":
         # each prefill of the largest bucket, layer by layer: the entries
         # dropped at capacity, from the prompt's rows and from the pad rows
@@ -2003,6 +2035,12 @@ def lm_serve_run(dev, arch: str, n_requests: int, tag) -> dict:
     print(json.dumps({"phase": "lm_serve", **out, **tag}), flush=True)
     del eng, core, params
     return out
+
+
+def tree_bytes(tree) -> int:
+    from repro_torch import tree as tu
+
+    return sum(x.numel() * x.element_size() for x in tu.leaves(tree))
 
 
 def lm_engine_run(cfg, params, reqs, *, n_slots: int, max_seq: int):
@@ -2082,7 +2120,7 @@ def phase_lm(dev, tag) -> dict:
         raise AssertionError(f"LM serving launched hand-written kernels: {dict(backend.launches)}")
     out["kernel_launches"] = launches
 
-    # the CLI: qwen1.5-0.5b at its smoke config, and a family not ported yet
+    # the CLI: qwen1.5-0.5b at its smoke config, and a family the Engine refuses
     src = os.path.join(os.path.dirname(os.path.abspath(__file__)), "src")
     env = {**os.environ, "PYTHONPATH": src}
     t0 = time.perf_counter()
@@ -2093,13 +2131,14 @@ def phase_lm(dev, tag) -> dict:
     if cli.returncode != 0 or line is None:
         raise AssertionError(f"the serve CLI exited {cli.returncode}: {cli.stderr[-2000:]}")
     refused = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--arch",
-                              "rwkv6-3b"], env=env, capture_output=True, text=True, timeout=600)
-    if refused.returncode == 0 or "ROADMAP.md queue 1 item 9c" not in refused.stderr:
-        raise AssertionError(f"--arch rwkv6-3b exited {refused.returncode}: "
+                              "whisper-small"], env=env, capture_output=True, text=True,
+                             timeout=600)
+    if refused.returncode == 0 or "ROADMAP.md R10" not in refused.stderr:
+        raise AssertionError(f"--arch whisper-small exited {refused.returncode}: "
                              f"{refused.stderr[-2000:]}")
     out["cli"] = {"line": line, "seconds": time.perf_counter() - t0,
-                  "rwkv6_rc": refused.returncode,
-                  "rwkv6_error": refused.stderr.strip().splitlines()[-1]}
+                  "whisper_rc": refused.returncode,
+                  "whisper_error": refused.stderr.strip().splitlines()[-1]}
     print(json.dumps({"phase": "lm_cli", **out["cli"], **tag}), flush=True)
     return out
 
@@ -2712,6 +2751,272 @@ def phase_multiprocess(dev, tag, fused_kernel: str) -> dict:
         shutil.rmtree(root, ignore_errors=True)
     return out
 
+# --------------------------------------------------- o. the other LM families
+
+# at smoke_config, the card against the CPU: rwkv6 and zamba2 through Engine,
+# whisper and llava through their API
+LM_FAMILY_ENGINE = ("rwkv6-3b", "zamba2-7b")
+LM_FAMILY_API = ("whisper-small", "llava-next-34b")
+# f32 logits, card against CPU: within 8e-5 of the largest |logit| where no
+# bf16 cache lies on the path (rwkv6's and mamba2's state is f32; zamba2's
+# shared attention, and every prefill, read back the f32 K/V they computed).
+# whisper's and llava's decode steps read their K/V from the bf16 cache,
+# where f32 values an ulp apart on the card and the CPU can round to bf16
+# values 2^-8 apart: those steps are held to phase l's LM_LOGITS_TOL
+LM_FAMILY_F32_TOL = 8e-5
+LM_FAMILY_SERVE = 16  # requests at full width through Engine (phase l's traffic)
+WHISPER_FULL = {"batch": 8, "prompt": 4, "new": 32}
+LLAVA_FULL = {"batch": 1, "prompt": 64, "new": 16}
+LLAVA_HEADROOM_GIB = 10.0  # the prefill's f32 scores over 2944 rows and the cache
+
+
+def family_extra(cfg, batch: int, rng, dev, dtype=torch.float32) -> torch.Tensor:
+    """The stub frontend's output drawn with numpy: whisper's frames
+    (B, encoder_seq, d_model), llava's patches (B, n_patches, D_VISION)."""
+    from repro_torch.models import llava
+
+    shape = ((batch, cfg.encoder_seq, cfg.d_model) if cfg.family == "audio"
+             else (batch, cfg.n_patches, llava.D_VISION))
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev, dtype)
+
+
+def api_greedy(api, params, toks, extra, n: int, *, on_call=None):
+    """whisper or llava through its API: prefill with ``extra`` into a bf16
+    cache of ``T + n`` rows (llava's ``P + T + n``), then ``n`` greedy
+    ``decode_fn`` steps, the batch at one position. Returns (tokens
+    (B, n + 1) on the host, logits per call on the host, the cache).
+    ``on_call(kind, f)`` runs the prefill (kind "prefill") and each decode
+    step ("decode"), for timing."""
+    b, t = toks.shape
+    rows = t + (extra.shape[1] if api.cfg.family == "vlm" else 0)
+    cache = api.init_cache(b, rows + n, device=toks.device)
+    call = on_call or (lambda kind, f: f())
+    logits, cache = call("prefill", lambda: api.prefill_fn(params, toks, extra, cache=cache))
+    seq, calls = [logits.argmax(-1)], [logits.float().cpu()]
+    for i in range(n):
+        logits, cache = call("decode", lambda c=cache, tok=seq[-1], pos=rows + i:
+                             api.decode_fn(params, c, tok, pos))
+        seq.append(logits.argmax(-1))
+        calls.append(logits.float().cpu())
+    return torch.stack(seq, 1).cpu(), calls, cache
+
+
+def family_card_vs_cpu(dev, tag) -> dict:
+    """The four families at smoke_config on the card against the CPU (f32,
+    TF32 off): streams equal; logits within LM_FAMILY_F32_TOL, except the
+    decode steps of whisper and llava (bf16 cache): LM_LOGITS_TOL."""
+    import copy
+
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models import zoo
+
+    out = {}
+    for arch in LM_FAMILY_ENGINE + LM_FAMILY_API:
+        cfg = smoke_config(get_config(arch))
+        api = zoo.get_api(cfg)
+        cpu_params = api.init_params(SEED, device="cpu")
+        card_params = tu.tree_map(lambda x: x.to(dev), cpu_params)
+        rng = np.random.default_rng(SEED + 30)
+        if arch in LM_FAMILY_ENGINE:
+            reqs = lm_requests(rng, cfg, [int(rng.integers(3, 41)) for _ in range(7)], 8)
+            runs = [lm_engine_run(cfg, p, copy.deepcopy(reqs), n_slots=4, max_seq=96)
+                    for p in (cpu_params, card_params)]
+            row = {"arch": arch, "path": "Engine", "requests": len(reqs), "slots": 4,
+                   **lm_compare(runs[1][0], runs[0][0], runs[1][1], runs[0][1],
+                                tol=LM_FAMILY_F32_TOL)}
+        else:
+            toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (2, 5)))
+            extra = family_extra(cfg, 2, rng, "cpu")
+            cpu_seq, cpu_calls, _ = api_greedy(api, cpu_params, toks, extra, 8)
+            card_seq, card_calls, _ = api_greedy(api, card_params, toks.to(dev),
+                                                 extra.to(dev), 8)
+            errs = [float((a - b).abs().max()) / float(b.abs().max())
+                    for a, b in zip(card_calls, cpu_calls)]
+            for k, (err, tol) in enumerate(zip(errs, [LM_FAMILY_F32_TOL]
+                                               + [LM_LOGITS_TOL] * (len(errs) - 1))):
+                if err > tol:
+                    raise AssertionError(f"{arch} call {k}: card logits {err:.3e} of the "
+                                         f"largest from the CPU's (> {tol})")
+            if not torch.equal(card_seq, cpu_seq):
+                raise AssertionError(f"{arch}: card tokens {card_seq.tolist()} != CPU "
+                                     f"{cpu_seq.tolist()}")
+            row = {"arch": arch, "path": "api", "batch": 2, "steps": 8,
+                   "prefill_rel_err": errs[0], "prefill_tol": LM_FAMILY_F32_TOL,
+                   "decode_max_rel_err": max(errs[1:]), "decode_tol": LM_LOGITS_TOL,
+                   "tokens_equal": True}
+        if not row["tokens_equal"]:
+            raise AssertionError(f"{arch}: card against CPU {row}")
+        out[arch] = row
+        print(json.dumps({"phase": "lm_family_card_vs_cpu", **row, **tag}), flush=True)
+    return out
+
+
+def llava_layers_that_fit(cfg) -> tuple[int, float]:
+    """The most layers (≤ ``cfg.n_layers``) whose bf16 weights fit in the
+    card's free memory beside LLAVA_HEADROOM_GIB, and that free memory."""
+    from repro_torch.models import llava
+
+    d, f, nh, nkv, hd = cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    per_layer = (d * nh * hd + 2 * d * nkv * hd + nh * hd * d + 3 * d * f + 2 * d) * 2
+    fixed = (2 * cfg.vocab_size * d + d + llava.D_VISION * d + d * d) * 2
+    free = torch.cuda.mem_get_info()[0]
+    room = free - LLAVA_HEADROOM_GIB * 2**30 - fixed
+    return max(1, min(cfg.n_layers, int(room // per_layer))), free / 2**30
+
+
+def events_ms(fn, reps: int = 5) -> float:
+    """Median ms of ``fn`` between CUDA events around each call, after one
+    warm-up: device time where the device is the slower side, host gaps
+    included where the host is (``device_ms`` needs calls the host can
+    queue ahead of a spin kernel; these make hundreds of launches)."""
+    fn()
+    out = []
+    for _ in range(reps):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        out.append(e0.elapsed_time(e1))
+    return statistics.median(out)
+
+
+def api_serve_run(dev, arch: str, tag) -> dict:
+    """whisper-small or llava-next-34b at full width in bf16 through its
+    API: prefill ms (and whisper's encoder and ``cross_kv`` ms), the decode
+    steps' host and device ms, one steady step's busy share, tokens/s, peak
+    memory, the params' and the cache's bytes."""
+    from repro_torch.benchmarks import serve_bench
+    from repro_torch.configs import get_config
+    from repro_torch.models import whisper, zoo
+
+    cfg = get_config(arch)
+    run = WHISPER_FULL if cfg.family == "audio" else LLAVA_FULL
+    cut = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    if cfg.family == "vlm":
+        fit, free_gib = llava_layers_that_fit(cfg)
+        if fit < cfg.n_layers:
+            cut = {"n_layers": [cfg.n_layers, fit], "free_gib_before": free_gib,
+                   "headroom_gib": LLAVA_HEADROOM_GIB}
+            cfg = dataclasses.replace(cfg, n_layers=fit)
+    api = zoo.get_api(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = api.init_params(SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated()
+    rng = np.random.default_rng(SEED + 31)
+    b, t, n = run["batch"], run["prompt"], run["new"]
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (b, t))).to(dev)
+    extra = family_extra(cfg, b, rng, dev, cfg.param_dtype)
+    parts = {}
+    if cfg.family == "audio":  # the prefill's two parts on their own
+        enc = whisper.encode(params, extra, cfg)
+        parts = {"encoder_ms": events_ms(lambda: whisper.encode(params, extra, cfg)),
+                 "cross_kv_ms": events_ms(lambda: whisper.cross_kv(params, enc, cfg))}
+        del enc
+    api_greedy(api, params, toks, extra, 2)  # warm-up: first-call library set-up
+    torch.cuda.reset_peak_memory_stats()
+    events, walls = {"prefill": [], "decode": []}, {"prefill": [], "decode": []}
+
+    def timed(kind, call):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t_ = time.perf_counter()
+        e0.record()
+        r = call()
+        e1.record()
+        r[0].argmax(-1).tolist()  # the host waits for the token, as a server does
+        walls[kind].append((time.perf_counter() - t_) * 1e3)
+        events[kind].append((e0, e1))
+        return r
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seq, calls, cache = api_greedy(api, params, toks, extra, n, on_call=timed)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    prefill_ms = events["prefill"][0][0].elapsed_time(events["prefill"][0][1])
+    dec_dev = [a.elapsed_time(z) for a, z in events["decode"]]
+    peak = torch.cuda.max_memory_allocated()
+    if seq.shape != (b, n + 1) or not all(bool(torch.isfinite(c).all()) for c in calls):
+        raise AssertionError(f"{arch}: {tuple(seq.shape)} tokens, finite "
+                             f"{[bool(torch.isfinite(c).all()) for c in calls]}")
+    if not ((seq >= 0) & (seq < cfg.vocab_size)).all():
+        raise AssertionError(f"{arch}: a token outside the vocabulary")
+    rows = cache[0].shape[2]
+    tok = seq[:, -1].to(dev)
+
+    def one_step():
+        logits, _ = api.decode_fn(params, cache, tok, rows - 1)
+        return torch.argmax(logits, dim=-1)
+
+    by_kernel = serve_bench.kernel_breakdown(one_step, dev)
+    step_wall = statistics.median(walls["decode"][1:])
+    out = {"arch": arch, "family": cfg.family, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+           "d_model": cfg.d_model, "depth_cut": cut, "batch": b, "prompt_tokens": t,
+           "extra": list(extra.shape), "new_tokens": n, "init_s": init_s,
+           "n_params": get_config(arch).n_params(), "param_bytes": tree_bytes(params),
+           "cache_bytes": tree_bytes(cache), "run_s": run_s,
+           "tokens_per_s": b * (n + 1) / run_s, "prefill_device_ms": prefill_ms,
+           "prefill_host_ms": walls["prefill"][0], **parts,
+           "decode_step_host_ms_p50": step_wall,
+           "decode_step_device_ms_p50": statistics.median(dec_dev),
+           "decode_step_kernel_ms": None if by_kernel is None else by_kernel["total_ms"],
+           "decode_step_kernel_launches": None if by_kernel is None
+           else by_kernel["kernel_launches"],
+           "decode_step_busy_share": None if by_kernel is None
+           else by_kernel["total_ms"] / step_wall,
+           "decode_step_top_kernels": None if by_kernel is None else by_kernel["kernels"][:8],
+           "init_peak_memory_gib": init_peak / 2**30, "peak_memory_gib": peak / 2**30}
+    print(json.dumps({"phase": "lm_family_serve", **out, **tag}), flush=True)
+    del params, cache, extra
+    return out
+
+
+def phase_lm_families(dev, tag) -> dict:
+    """(o) The ssm, hybrid, audio and vlm families on the card: smoke-config
+    parity against the CPU, then each model at full width in bf16 (rwkv6-3b
+    and zamba2-7b through ``Engine``, whisper-small and llava-next-34b
+    through their API). No hand-written kernel runs on this path: the
+    launch counts are set to 0 before the phase and must read 0 after it."""
+    from repro_torch import backend
+    from repro_torch.configs import get_config
+    from repro_torch.models import snn_yolo as sy
+
+    backend.reset_launches()
+    out = {}
+    with sy._no_tf32():
+        out["card_vs_cpu"] = family_card_vs_cpu(dev, tag)
+    out["serve"] = {}
+    for arch in LM_FAMILY_ENGINE:
+        gc.collect()
+        torch.cuda.empty_cache()
+        row = lm_serve_run(dev, arch, LM_FAMILY_SERVE, tag)
+        row["n_params_bytes_bf16"] = get_config(arch).n_params() * 2
+        print(json.dumps({"phase": "lm_family_bytes", "arch": arch,
+                          "n_params": row["n_params"], "param_bytes": row["param_bytes"],
+                          "n_params_bytes_bf16": row["n_params_bytes_bf16"],
+                          "cache_bytes": row["cache_bytes"], **tag}), flush=True)
+        out["serve"][arch] = row
+    for arch in LM_FAMILY_API:
+        out["serve"][arch] = api_serve_run(dev, arch, tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    launches = sum(backend.launches.values())
+    print(json.dumps({"phase": "lm_family_kernel_launches",
+                      "hand_written_kernel_launches": launches,
+                      "by_kernel": dict(backend.launches), **tag}), flush=True)
+    if launches:
+        raise AssertionError(f"the LM families launched hand-written kernels: "
+                             f"{dict(backend.launches)}")
+    out["kernel_launches"] = launches
+    return out
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2979,6 +3284,13 @@ def main() -> int:
     multi = phase_multiprocess(dev, tag, fp.KERNEL)
     print(json.dumps({"phase": "elapsed", "after": "n", "s": time.perf_counter() - t_start}),
           flush=True)
+
+    # ------------------------------------------------ o. the other LM families
+    gc.collect()
+    torch.cuda.empty_cache()
+    families = phase_lm_families(dev, tag)
+    print(json.dumps({"phase": "elapsed", "after": "o", "s": time.perf_counter() - t_start}),
+          flush=True)
     sharded_launches = multi["sharded_eval"]["launches"]
     train_launches = trained["train"]["kernel_launches"]
     bl, el = benches["bench_launches"], benches["e2e_launches"]
@@ -3021,6 +3333,7 @@ def main() -> int:
         "launches_pipeline": pipeline["launches"].get("fused_pipeline", 0),
         "launches_lm_serving": lm["kernel_launches"],
         "launches_lm_training": lm_train["kernel_launches"],
+        "launches_lm_families": families["kernel_launches"],
         "launches_pipeline_per_detect": pipeline["fused_launches_per_detect"],
         "pipeline_uniform_t3_ms": pipeline["uniform_t3_kernel_ms"],
         "pipeline_uniform_t3_plain_ms": pipeline["uniform_t3_plain_ms"],
@@ -3076,6 +3389,7 @@ def main() -> int:
         "launches_pipeline": pipeline["launches"].get("gated_one_to_all", 0),
         "launches_lm_serving": lm["kernel_launches"],
         "launches_lm_training": lm_train["kernel_launches"],
+        "launches_lm_families": families["kernel_launches"],
         "launches_sharded_eval": sharded_launches.get("gated_one_to_all", 0),
     }, {
         "name": "fused_lif",
@@ -3099,6 +3413,7 @@ def main() -> int:
         "launches_pipeline": pipeline["launches"].get("spike_lif", 0),
         "launches_lm_serving": lm["kernel_launches"],
         "launches_lm_training": lm_train["kernel_launches"],
+        "launches_lm_families": families["kernel_launches"],
         "launches_sharded_eval": sharded_launches.get("spike_lif", 0),
     }, {
         "name": "bitmask_matmul",
@@ -3125,6 +3440,7 @@ def main() -> int:
         "launches_pipeline": pipeline["launches"].get("bitmask_matmul", 0),
         "launches_lm_serving": lm["kernel_launches"],
         "launches_lm_training": lm_train["kernel_launches"],
+        "launches_lm_families": families["kernel_launches"],
         "launches_sharded_eval": sharded_launches.get("bitmask_matmul", 0),
     }]
     print(json.dumps({"kernels": kernels}))

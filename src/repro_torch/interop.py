@@ -13,7 +13,10 @@ to the reference, where recomputing it with ``torch.rsqrt`` would not be.
 :func:`tree_to_numpy` goes the other way for any of the port's trees.
 :func:`train_state_from_numpy` and :func:`train_state_to_numpy` carry an LM
 ``TrainState`` (parameters, AdamW state, error-feedback residual) across
-both ways.
+both ways. :func:`lm_params_from_numpy` carries any LM family's
+parameters across, and :func:`lm_cache_from_numpy` / :func:`lm_cache_to_numpy`
+any LM cache (``KVCache``, ``QuantKVCache``, ``RWKVState``, ``HybridCache``,
+``WhisperCache``), leaf for leaf.
 """
 from __future__ import annotations
 
@@ -95,19 +98,24 @@ def tree_to_numpy(tree):
                        else np.asarray(x), tree)
 
 
+# leaves every family keeps in f32 whatever its param dtype: the MoE router,
+# rwkv6's decay base and bonus, mamba2's decay, skip and dt bias
+F32_LEAVES = frozenset({"router", "w0", "u", "A_log", "D", "dt_bias"})
+
+
 def lm_params_from_numpy(tree, cfg, *, device=None) -> dict:
     """The params tree of the JAX package's ``zoo.get_api(cfg).init_params``
-    with numpy leaves (f32, or ml_dtypes bf16) → the port's, on ``device``
-    (default: the card), each leaf in the dtype the port's own init gives
-    it: f32 for the MoE router, ``cfg.param_dtype`` elsewhere. A bf16 leaf
-    that crossed as f32 comes back exactly."""
+    (any family) with numpy leaves (f32, or ml_dtypes bf16) → the port's,
+    on ``device`` (default: the card), each leaf in the dtype the port's own
+    init gives it: f32 for :data:`F32_LEAVES`, ``cfg.param_dtype``
+    elsewhere. A bf16 leaf that crossed as f32 comes back exactly."""
     dev = resolve_device(device)
 
     def leaf(keys, a):
-        want = torch.float32 if keys[-1][1] == "router" else cfg.param_dtype
+        want = torch.float32 if keys[-1][1] in F32_LEAVES else cfg.param_dtype
         return _tensor(a, dev).to(want)
 
-    if not isinstance(tree.get("layers"), dict):
+    if "layers" in tree and not isinstance(tree["layers"], dict):
         raise ValueError("the port's layers are stacked (L, ...): want params['layers'] "
                          "as a dict of stacked leaves (scan_layers=True)")
     return tu.map_with_keys(leaf, tree)
@@ -140,18 +148,42 @@ def train_state_to_numpy(state):
                                           .detach().cpu().numpy()), state)
 
 
-def lm_cache_from_numpy(cache_np, *, device=None):
-    """A JAX ``KVCache`` or ``QuantKVCache`` with numpy leaves → the port's,
-    on ``device`` (default: the card), each leaf in its own dtype (bf16
-    carried bit for bit)."""
+def _cache_types() -> dict:
+    """The port's cache types by their fields (the JAX package's name the
+    same fields)."""
+    from repro_torch.models import hybrid, mamba2, rwkv6, whisper
     from repro_torch.models import transformer as tfm
 
+    kinds = (tfm.KVCache, tfm.QuantKVCache, rwkv6.RWKVState, mamba2.MambaState,
+             hybrid.HybridCache, whisper.WhisperCache)
+    return {k._fields: k for k in kinds}
+
+
+def lm_cache_from_numpy(cache_np, *, device=None):
+    """A JAX LM cache with numpy leaves — ``KVCache``, ``QuantKVCache``,
+    ``RWKVState``, ``HybridCache`` (its ``tail`` possibly None) or
+    ``WhisperCache``, or a plain tuple of 2 or 4 arrays for the first two —
+    → the port's type, on ``device`` (default: the card), each leaf in its
+    own dtype (bf16 carried bit for bit)."""
     dev = resolve_device(device)
-    kind = tfm.QuantKVCache if len(cache_np) == 4 else tfm.KVCache
-    return kind(*(_tensor(a, dev) for a in cache_np))
+    kinds = _cache_types()
+
+    def convert(node):
+        if node is None:
+            return None
+        fields = getattr(type(node), "_fields", None)
+        if fields is None and isinstance(node, tuple):  # a bare KV tuple
+            fields = ("k", "v", "k_scale", "v_scale")[:len(node)]
+        if fields is None:
+            return _tensor(node, dev)
+        return kinds[tuple(fields)](*(convert(c) for c in node))
+
+    return convert(cache_np)
 
 
-def lm_cache_to_numpy(cache) -> tuple:
-    """The port's ``KVCache`` / ``QuantKVCache`` as a tuple of host numpy
-    arrays, bf16 widened to f32 (exact)."""
-    return tuple((x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy() for x in cache)
+def lm_cache_to_numpy(cache):
+    """Any of the port's LM caches with every leaf a host numpy array, bf16
+    widened to f32 (exact), in the same NamedTuple types (tuples: a
+    ``KVCache`` still unpacks as (k, v))."""
+    return tu.tree_map(lambda x: (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy(),
+                       cache)

@@ -2,14 +2,16 @@
 continuous batching over a fixed slot pool serves both workloads. The
 counterpart of ``repro/launch/serve.py``.
 
-* LM token requests (``--arch`` one of the dense or moe LM configs): the
-  port's seeded weights (``zoo.get_api(cfg).init_params(0)``, a
-  ``torch.Generator`` — not the JAX package's ``PRNGKey(0)`` weights),
-  ``--requests`` prompts of 3–31 tokens from ``np.random.default_rng(0)``
-  as in JAX, greedy decoding of ``--max-new`` tokens each over ``--slots``
-  slots of ``--max-seq`` cache rows; prints the tokens/s line. The smoke
-  config unless ``--full-config``. The ssm, hybrid, vlm and audio families
-  raise ``NotImplementedError`` (ROADMAP.md queue 1 item 9c).
+* LM token requests (``--arch`` an LM config of the dense, moe, ssm or
+  hybrid family): the port's seeded weights
+  (``zoo.get_api(cfg).init_params(0)``, a ``torch.Generator`` — not the JAX
+  package's ``PRNGKey(0)`` weights), ``--requests`` prompts of 3–31 tokens
+  from ``np.random.default_rng(0)`` as in JAX, greedy decoding of
+  ``--max-new`` tokens each over ``--slots`` slots of ``--max-seq`` cache
+  rows; prints the tokens/s line. The smoke config unless
+  ``--full-config``. The vlm and audio families (llava-next-34b,
+  whisper-small) are refused with a ValueError (ROADMAP.md R10): a request
+  carries no patches or frames; they serve through ``zoo.get_api``.
 * snn-det frame streams: the compile-once detector with its membranes
   resident on the device (``--dataset`` takes ``synthetic``,
   ``coco:<instances.json>`` or ``voc:<dir>``). ``--eval-map`` serves the
@@ -23,7 +25,7 @@ counterpart of ``repro/launch/serve.py``.
   ``--requests`` serves all of them.
 
 Usage:
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \\
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b|rwkv6-3b \\
       [--requests 8 --slots 4 --max-new 16 --max-seq 128] [--full-config] \\
       [--device cpu]
   PYTHONPATH=src python -m repro_torch.launch.serve --arch snn-det \\
@@ -52,6 +54,7 @@ from repro_torch.eval import sharded as se
 from repro_torch.models import snn_yolo as sy
 from repro_torch.models import zoo
 from repro_torch.serve import AdmissionPolicy, Engine, FrameRequest, Request
+from repro_torch.serve.engine import check_servable
 from repro_torch.serve.detector import demo_weights, step_latency_ms, synth_streams
 
 
@@ -68,6 +71,7 @@ def _report_rejections(eng):
 
 
 def _serve_lm(cfg, args):
+    check_servable(cfg)  # before the weights are drawn
     api = zoo.get_api(cfg)
     params = api.init_params(0, device=args.device)
     eng = Engine(cfg, params, n_slots=args.slots, max_seq=args.max_seq,

@@ -196,15 +196,28 @@ def attention(
     cfg: LMConfig,
     *,
     positions: torch.Tensor,
+    causal: bool = True,
     kv_cache: Optional[KVSlice] = None,
     cache_pos=None,
+    cross_kv: Optional[KVSlice] = None,
 ):
     """Returns (out, new_kv). Modes:
-      * full (prefill): causal self-attention over x;
+      * full (prefill): self-attention over x, causal unless ``causal=False``
+        (whisper's encoder);
       * decode: kv_cache + cache_pos given, the step written at cache_pos
-        (an int, or one position per batch row) into a copy of the cache.
+        (an int, or one position per batch row) into a copy of the cache;
+      * cross: cross_kv given (whisper's decoder) — keys and values from the
+        encoder, no mask, no new KV.
     """
     b, s, _ = x.shape
+    if cross_kv is not None:
+        nh, hd = cfg.n_heads, cfg.hd
+        q = _mm(x, p["wq"]).reshape(b, s, nh, hd)
+        if cfg.qkv_bias:
+            q = q + p["bq"].reshape(nh, hd)
+        out = _sdpa(q, cross_kv.k, cross_kv.v, None, cfg)
+        return _mm(out, p["wo"]), None
+
     q, k, v = _qkv(x, p, cfg, positions)
 
     if kv_cache is not None:
@@ -229,9 +242,11 @@ def attention(
         return _mm(out, p["wo"]), KVSlice(k_all, v_all)
 
     if s > CHUNKED_ATTN_THRESHOLD:
-        out = _chunked_sdpa(q, k, v, cfg, causal=True)
+        out = _chunked_sdpa(q, k, v, cfg, causal=causal)
     else:
-        mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=x.device))[None, None]
+        mask = None
+        if causal:
+            mask = torch.tril(torch.ones((s, s), dtype=torch.bool, device=x.device))[None, None]
         out = _sdpa(q, k, v, mask, cfg)
     return _mm(out, p["wo"]), KVSlice(k, v)
 
@@ -257,6 +272,16 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 def mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
     """SwiGLU."""
     return _mm(silu(_mm(x, p["wg"])) * _mm(x, p["wi"]), p["wo"])
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``'s formula, logaddexp(x, 0) (no linear cut-off)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
 
 
 # -------------------------------------------------------------- embeddings --

@@ -1,6 +1,8 @@
-"""Dense decoder-only transformer (the qwen / llama backbone) and the
-prefill/decode steps the MoE family reuses with its own layer body.
-Counterpart of ``repro/models/transformer.py``.
+"""Dense decoder-only transformer (the qwen / llama / llava backbone) and
+the prefill/decode steps the MoE family reuses with its own layer body.
+Counterpart of ``repro/models/transformer.py``. ``extra_embeds`` (B, P, D)
+is a modality prefix (llava's projected patches) put before the token
+embeddings by :func:`forward`, :func:`cached_forward` and the prefill.
 
 Parameters are stacked over layers — every leaf of ``params["layers"]`` is
 (L, ...) — as the JAX package's scanned layers are, so a params tree
@@ -52,30 +54,41 @@ def layer_params(layers, i: int) -> dict:
     return tu.tree_map(lambda a: a[i], layers)
 
 
+def init_stacked(gen: torch.Generator, cfg: LMConfig, layer_init_fn, lead: tuple) -> dict:
+    """``prod(lead)`` layers drawn one at a time into stacked (*lead, ...)
+    leaves: the peak is the stack plus one layer."""
+    n = 1
+    for d in lead:
+        n *= d
+    stacked = None
+    for i in range(n):
+        layer = layer_init_fn(gen, cfg)
+        if stacked is None:
+            stacked = tu.tree_map(lambda a: a.new_empty(tuple(lead) + tuple(a.shape)), layer)
+        for dst, src in zip(tu.leaves(stacked), tu.leaves(layer)):
+            dst.view(n, *src.shape)[i].copy_(src)
+        del layer
+    return stacked
+
+
 def init_params(gen: torch.Generator, cfg: LMConfig, layer_init_fn=layer_init) -> dict:
     """Seeded parameters on ``gen``'s device: the embeddings, then the
-    layers drawn one at a time into their stacked (L, ...) leaves (the peak
-    is the stack plus one layer)."""
+    layers drawn one at a time into their stacked (L, ...) leaves."""
     embed = L.embed_init(gen, cfg)
-    first = layer_init_fn(gen, cfg)
-    stacked = tu.tree_map(lambda a: a.new_empty((cfg.n_layers,) + tuple(a.shape)), first)
-    for i in range(cfg.n_layers):
-        layer = first if i == 0 else layer_init_fn(gen, cfg)
-        for dst, src in zip(tu.leaves(stacked), tu.leaves(layer)):
-            dst[i].copy_(src)
-    return {"embed": embed, "layers": stacked}
+    return {"embed": embed, "layers": init_stacked(gen, cfg, layer_init_fn, (cfg.n_layers,))}
 
 
 # ----------------------------------------------------------------- forward --
 
 
-def dense_block(x, lp, cfg: LMConfig, *, positions, kv=None, cache_pos=None):
+def dense_block(x, lp, cfg: LMConfig, *, positions, kv=None, cache_pos=None, causal=True):
     """Pre-norm attention + SwiGLU block. Returns (x, new_kv)."""
     h, new_kv = L.attention(
         L.rmsnorm(x, lp["ln1"], cfg.norm_eps),
         lp["attn"],
         cfg,
         positions=positions,
+        causal=causal,
         kv_cache=kv,
         cache_pos=cache_pos,
     )
@@ -97,6 +110,20 @@ class KVCache(NamedTuple):
                        torch.zeros(shape, dtype=dtype, device=device))
 
 
+def KVSlice_or_none(kv, i: int):
+    """Layer ``i``'s rows of a stacked (k, v) pair, or None without one."""
+    return None if kv is None else L.KVSlice(kv[0][i], kv[1][i])
+
+
+def embed_with_prefix(tokens, params, extra_embeds=None) -> torch.Tensor:
+    """Token embeddings, with ``extra_embeds`` (B, P, D) put before them in
+    the embeddings' dtype."""
+    x = L.embed_tokens(tokens, params["embed"])
+    if extra_embeds is not None:
+        x = torch.cat([extra_embeds.to(x.dtype), x], dim=1)
+    return x
+
+
 def _positions(pos0, b: int, s: int, device) -> torch.Tensor:
     """(B, S) positions of tokens written from ``pos0`` (an int, or one
     position per batch row)."""
@@ -112,15 +139,17 @@ def forward(
     block_fn: Callable = dense_block,
     kv_cache: Optional[KVCache] = None,
     cache_pos=None,
+    extra_embeds: Optional[torch.Tensor] = None,
     collect_kv: bool = False,
 ) -> tuple[torch.Tensor, Optional[KVCache]]:
-    """tokens (B, S) → logits (B, S, V), layer by layer over the stacked
-    params. ``collect_kv``: also return the per-layer K/V (prefill/decode).
-    Under autograd with ``cfg.remat``, each block is recomputed in the
-    backward instead of kept."""
+    """tokens (B, S) → logits (B, P + S, V), layer by layer over the stacked
+    params, ``extra_embeds`` (B, P, D) prepended. ``collect_kv``: also
+    return the per-layer K/V (prefill/decode). Under autograd with
+    ``cfg.remat``, each block is recomputed in the backward instead of
+    kept."""
     collect_kv = collect_kv or kv_cache is not None
     remat = cfg.remat and torch.is_grad_enabled() and not collect_kv
-    x = L.embed_tokens(tokens, params["embed"])
+    x = embed_with_prefix(tokens, params, extra_embeds)
     b, s, _ = x.shape
     positions = _positions(cache_pos if cache_pos is not None else 0, b, s, x.device)
     new_ks, new_vs = [], []
@@ -130,7 +159,7 @@ def forward(
             x = checkpoint(_block_out, block_fn, x, lp, cfg, positions, use_reentrant=False,
                            preserve_rng_state=False)
             continue
-        kv = L.KVSlice(kv_cache.k[i], kv_cache.v[i]) if kv_cache is not None else None
+        kv = KVSlice_or_none(kv_cache, i)
         x, new_kv = block_fn(x, lp, cfg, positions=positions, kv=kv, cache_pos=cache_pos)
         if collect_kv:
             new_ks.append(new_kv.k)
@@ -148,16 +177,18 @@ def _block_out(block_fn, x, lp, cfg, positions):
 
 def make_loss_fn(cfg: LMConfig, block_fn=dense_block):
     """(params, batch) → the mean next-token loss, as JAX's: logits at
-    positions [:-1] against ``labels[:, 1:]``. The ``extra_embeds`` prefix
-    (llava, whisper) is ROADMAP queue 1 item 9c's."""
+    positions [:-1] against ``labels[:, 1:]``. A ``batch["extra_embeds"]``
+    prefix (llava's patches) carries no loss: only the token suffix's
+    logits are scored."""
 
     def loss_fn(params, batch):
-        if batch.get("extra_embeds") is not None:
-            raise NotImplementedError(
-                "extra_embeds: modality prefixes are not ported yet (ROADMAP.md queue 1 "
-                "item 9c)")
-        logits, _ = forward(params, batch["tokens"], cfg, block_fn=block_fn)
-        return L.cross_entropy(logits[:, :-1], batch["labels"][:, 1:])
+        extra = batch.get("extra_embeds")
+        logits, _ = forward(params, batch["tokens"], cfg, block_fn=block_fn,
+                            extra_embeds=extra)
+        labels = batch["labels"]
+        if extra is not None:
+            logits = logits[:, -labels.shape[1]:]
+        return L.cross_entropy(logits[:, :-1], labels[:, 1:])
 
     return loss_fn
 
@@ -167,10 +198,12 @@ def make_prefill_fn(cfg: LMConfig, block_fn=dense_block):
     populated KV cache. ``valid_len`` supports bucketed prefill: tokens
     padded past the real prompt, the causal mask keeps positions <
     valid_len blind to the pad, and the logits come from position
-    ``valid_len - 1``."""
+    ``valid_len - 1``, counted over the whole input (``extra_embeds``
+    first)."""
 
-    def prefill(params, tokens, valid_len=None):
-        logits, cache = forward(params, tokens, cfg, block_fn=block_fn, collect_kv=True)
+    def prefill(params, tokens, valid_len=None, *, extra_embeds=None):
+        logits, cache = forward(params, tokens, cfg, block_fn=block_fn,
+                                extra_embeds=extra_embeds, collect_kv=True)
         if valid_len is None:
             return logits[:, -1], cache
         return logits[:, int(valid_len) - 1], cache
@@ -231,16 +264,18 @@ def cached_forward(
     pos0,  # int, or (B,) tensor: write offset of tokens[:, 0]
     *,
     mlp_fn: Optional[Callable] = None,
+    extra_embeds: Optional[torch.Tensor] = None,
     valid_len=None,
 ):
     """Prefill/decode over a carried stacked cache. Returns (last-position
-    logits (B, V), the cache). ``valid_len`` selects position
-    ``valid_len - 1`` instead of the last (bucketed prefill over
-    end-padded tokens — pad rows land in the cache past the prompt, and
-    serving only ever copies rows [:valid_len])."""
+    logits (B, V), the cache). ``extra_embeds`` (B, P, D) is written first,
+    from ``pos0``. ``valid_len`` selects position ``valid_len - 1`` instead
+    of the last (bucketed prefill over end-padded tokens — pad rows land in
+    the cache past the prompt, and serving only ever copies rows
+    [:valid_len])."""
     mlp_fn = mlp_fn or (lambda h, lp: L.mlp(h, lp["mlp"]))
     quant = isinstance(cache, QuantKVCache)
-    x = L.embed_tokens(tokens, params["embed"])
+    x = embed_with_prefix(tokens, params, extra_embeds)
     b, s, _ = x.shape
     dev = x.device
     slots = L.per_slot(pos0)

@@ -4,10 +4,15 @@ control. Counterpart of ``repro/serve/engine.py``.
 :class:`Engine` owns the queue, the slot occupancy and the run loop, and
 leaves the model work to an :class:`EngineAPI` backend:
 
-* :class:`LMEngineCore` — LM token serving (the dense and moe families).
-  One shared KV cache over the pool; each request is prefilled at a
-  bucketed length and its rows copied into its slot; each step decodes one
-  token for every active slot, each at its own cache position.
+* :class:`LMEngineCore` — LM token serving. One shared cache over the
+  pool: each request is prefilled and its rows (or, for the recurrent
+  ssm and hybrid families, its state) copied into its slot; each step
+  decodes one token for every active slot, each at its own cache position.
+  The dense and moe families prefill at bucketed lengths, the recurrent
+  ones at the exact length. The vlm and audio families are refused
+  (ROADMAP R10): a ``Request`` carries no patches or frames, and the JAX
+  package's ``Engine`` cannot serve them either; they serve through the
+  ``zoo`` API.
 * :class:`repro_torch.serve.detector.DetectorEngineCore` — detection
   serving: slot i is one frame stream, and each step advances every active
   stream by one frame as one megabatch.
@@ -119,13 +124,28 @@ class EngineAPI(Protocol):
     def step(self, active: dict[int, Any]) -> list[int]: ...
 
 
+# families whose prefill takes more than tokens: Request has nothing to give it
+UNSERVED_FAMILIES = ("vlm", "audio")
+
+
+def check_servable(cfg: LMConfig) -> None:
+    """Raise ValueError (ROADMAP R10) for a family the Engine cannot serve."""
+    if cfg.family in UNSERVED_FAMILIES:
+        raise ValueError(
+            f"{cfg.arch_id}: the {cfg.family} family's prefill needs "
+            f"{'patches' if cfg.family == 'vlm' else 'frames'}, which a Request does not "
+            "carry; the JAX package's Engine fails on it too (ROADMAP.md R10). Serve it "
+            "through zoo.get_api(cfg): prefill_fn with them, then decode_fn")
+
+
 class LMEngineCore:
-    """EngineAPI backend for LM token serving over one shared KV cache, on
-    the device that holds ``params``. Sampling is greedy (``greedy`` is
-    kept as the JAX package keeps it)."""
+    """EngineAPI backend for LM token serving over one shared cache, on the
+    device that holds ``params``. Sampling is greedy (``greedy`` is kept as
+    the JAX package keeps it)."""
 
     def __init__(self, cfg: LMConfig, params, *, n_slots: int = 8,
                  max_seq: int = 512, greedy: bool = True):
+        check_servable(cfg)
         self.cfg = cfg
         self.api = zoo.get_api(cfg)
         self.params = params
@@ -139,8 +159,10 @@ class LMEngineCore:
         self._prefill_cache = {}
         # bucketed prefill (pad + valid_len): the causal mask keeps positions
         # < plen blind to the pad, and _scatter_kv copies only rows [:plen].
-        # An int8 cache keeps exact-length prefill, as in the JAX package.
-        self._bucketed = not cfg.kv_quant
+        # The recurrent families (ssm, hybrid) would fold the pad into their
+        # state, and an int8 cache keeps exact-length prefill: as in JAX.
+        self._kv_family = cfg.family in ("dense", "moe")
+        self._bucketed = self._kv_family and not cfg.kv_quant
 
     def validate(self, req: Request) -> Optional[str]:
         """Why ``req`` cannot be served, or None: its prompt must leave at
@@ -152,9 +174,15 @@ class LMEngineCore:
     # ------------------------------------------------------------ prefill --
     def _prefill_fn(self, length: int):
         """The prefill for prompts padded to ``length``: one entry per
-        bucket (or exact length), holding the serve_fast path's scratch
-        cache of that length, reused by every request of the bucket."""
+        bucket (or exact length), keyed as JAX's engine keys its compiled
+        prefills. A KV family's entry holds the serve_fast path's scratch
+        cache of that length, reused by every request of the bucket; the
+        recurrent families build a new state per prefill, so theirs is the
+        API's prefill itself and the key only records the length served."""
         if length not in self._prefill_cache:
+            if not self._kv_family:
+                self._prefill_cache[length] = self.api.prefill_fn
+                return self.api.prefill_fn
             scratch = (self.api.init_cache(1, length, device=self.device)
                        if self.cfg.serve_fast else None)
             self._prefill_cache[length] = (
@@ -182,10 +210,33 @@ class LMEngineCore:
         self.pos[slot_idx] = plen
 
     def _scatter_kv(self, pcache, slot_idx: int, plen: int):
-        """Copy rows [:plen] of the request's prefill cache into its slot of
-        the shared cache (k and v, and an int8 cache's scales)."""
-        for dst, src in zip(self.cache, pcache):
+        """Copy the request's prefill into its slot of the shared cache:
+        rows [:plen] of k and v (and an int8 cache's scales); for the
+        recurrent families each state along its batch axis (1 for rwkv6's
+        and the hybrid's tail, 2 for the hybrid's (n_super, attn_every)
+        stack), and the hybrid's shared-attention rows [:plen]."""
+        def put_kv(dst, src):
             dst[:, slot_idx, :plen] = src[:, 0, :plen].to(dst.dtype)
+
+        def put_state(dst, src, axis: int):
+            idx = (slice(None),) * axis
+            dst[idx + (slot_idx,)] = src[idx + (0,)].to(dst.dtype)
+
+        c = self.cache
+        if self.cfg.family == "ssm":
+            for dst, src in zip(c, pcache):
+                put_state(dst, src, 1)
+        elif self.cfg.family == "hybrid":
+            for dst, src in zip(c.mamba, pcache.mamba):
+                put_state(dst, src, 2)
+            if c.tail is not None:
+                for dst, src in zip(c.tail, pcache.tail):
+                    put_state(dst, src, 1)
+            put_kv(c.attn_k, pcache.attn_k)
+            put_kv(c.attn_v, pcache.attn_v)
+        else:
+            for dst, src in zip(c, pcache):
+                put_kv(dst, src)
 
     # ------------------------------------------------------------- decode --
     def step(self, active: dict[int, Request]) -> list[int]:

@@ -8,7 +8,8 @@ same from run to run; the megabatched Engine on the card against solo
 session replays; and the ANN→SNN conversion on the card against the CPU's,
 a converted detector's fused launches at T=128 against the plain version,
 and the COCO fixture feeding ``evaluate_detector``; LM token serving (the
-smoke configs on the card against the CPU, qwen1.5-0.5b at full width); LM
+smoke configs on the card against the CPU, qwen1.5-0.5b at full width; a
+recurrent and a modal family on the card against the CPU); LM
 training (one train step at the smoke configs on the card against the CPU,
 the training launcher at qwen1.5-0.5b's full width); two processes sharing
 the card in one sharded detector evaluation; and, on four cards, the NCCL
@@ -611,6 +612,7 @@ def test_coco_source_feeds_evaluate_detector_on_the_card(cuda):
 # ---------------------------------------------------------- LM serving --
 # No hand-written kernel is on this path; the card runs PyTorch's own.
 LM_LOGITS_TOL = 4e-3  # tests/test_torch_lm.py's bound through the bf16 KV cache
+LM_F32_TOL = 8e-5  # card against CPU, f32 logits with no bf16 cache on the path
 
 
 def _lm_serve(cfg, params, prompts, *, n_slots, max_new):
@@ -692,6 +694,61 @@ def test_lm_engine_full_width_on_the_card(cuda):
     assert all(len(o) == 8 and all(0 <= t < cfg.vocab_size for t in o) for o in out.values())
     assert all(bool(torch.isfinite(c).all()) for c in calls)
     assert len(calls) == 4 + 7  # one prefill per request, 7 decode steps of all 4 together
+
+
+def _api_greedy(api, params, toks, frames, n):
+    """whisper through its API: prefill with the frames into a bf16 cache,
+    ``n`` greedy decode steps; (streams, every logits call on the host)."""
+    b, t = toks.shape
+    cache = api.init_cache(b, t + n, device=toks.device)
+    logits, cache = api.prefill_fn(params, toks, frames, cache=cache)
+    seq, calls = [logits.argmax(-1)], [logits.float().cpu()]
+    for i in range(n):
+        logits, cache = api.decode_fn(params, cache, seq[-1], t + i)
+        seq.append(logits.argmax(-1))
+        calls.append(logits.float().cpu())
+    return torch.stack(seq, 1).cpu(), calls
+
+
+@pytest.mark.gpu
+def test_lm_families_on_the_card_equal_cpu(cuda):
+    """A recurrent and a modal family at the smoke config (f32, TF32 off) on
+    the card and on the CPU from the same params: rwkv6-3b through
+    ``Engine``, whisper-small through its API with seeded frames. Logits
+    within 8e-5 of the largest |logit| (4e-3 for whisper's decode steps,
+    which read K/V from the bf16 cache), streams equal, no hand-written
+    kernel launched."""
+    from repro_torch import backend
+    from repro_torch import tree as tu
+    from repro_torch.configs import get_config
+    from repro_torch.configs import smoke_config as lm_smoke
+    from repro_torch.models import zoo
+
+    before = sum(backend.launches.values())
+    cfg = lm_smoke(get_config("rwkv6-3b"))
+    params = zoo.get_api(cfg).init_params(0, device="cpu")
+    rng = np.random.default_rng(23)
+    prompts = [[int(t) for t in rng.integers(1, cfg.vocab_size, int(rng.integers(3, 41)))]
+               for _ in range(6)]
+    cfg_w = lm_smoke(get_config("whisper-small"))
+    api_w = zoo.get_api(cfg_w)
+    params_w = api_w.init_params(0, device="cpu")
+    toks = torch.from_numpy(rng.integers(1, cfg_w.vocab_size, (2, 4)))
+    frames = torch.from_numpy(rng.standard_normal((2, cfg_w.encoder_seq, cfg_w.d_model))
+                              .astype(np.float32))
+    with sy._no_tf32():
+        cpu_out, cpu_calls = _lm_serve(cfg, params, prompts, n_slots=4, max_new=8)
+        card_out, card_calls = _lm_serve(cfg, tu.tree_map(lambda x: x.to(cuda), params),
+                                         prompts, n_slots=4, max_new=8)
+        cpu_seq, cpu_w = _api_greedy(api_w, params_w, toks, frames, 8)
+        card_seq, card_w = _api_greedy(api_w, tu.tree_map(lambda x: x.to(cuda), params_w),
+                                       toks.to(cuda), frames.to(cuda), 8)
+    torch.cuda.synchronize()
+    assert sum(backend.launches.values()) == before
+    tols = [LM_F32_TOL] * (len(cpu_calls) + 1) + [LM_LOGITS_TOL] * (len(cpu_w) - 1)
+    for a, b, tol in zip(card_calls + card_w, cpu_calls + cpu_w, tols, strict=True):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+    assert card_out == cpu_out and torch.equal(card_seq, cpu_seq)
 
 
 def _lm_train_step(api, params, batch, n_mb, gc, ocfg):

@@ -102,15 +102,9 @@ def test_registry_equals_jax():
         configs.get_config("gpt-5")
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-7b", "llava-next-34b", "whisper-small"])
-def test_unported_families_raise(arch):
-    cfg = configs.smoke_config(configs.get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9c"):
-        zoo.get_api(cfg)
-
-
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["rwkv6-3b", "zamba2-7b", "llava-next-34b",
+                                          "whisper-small"])
 def test_init_params_tree_matches_jax(arch, dtype):
     """The port's own seeded init has JAX's structure, shapes and dtypes,
     and JAX's params cross bit for bit (bf16 through f32)."""

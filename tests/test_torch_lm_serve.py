@@ -253,9 +253,20 @@ def test_serve_cli_lm_in_process():
         assert r.prompt == list(rng.integers(1, 256, plen))
 
 
-def test_serve_cli_unported_family_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9c"):
-        launch.main(["--arch", "rwkv6-3b", "--device", "cpu"])
+def test_serve_cli_serves_rwkv6_in_process():
+    """The ssm family through the CLI: JAX's CLI prompts (default_rng(0),
+    3..31 tokens), exact-length prefill, every request its tokens."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        done = launch.main(["--arch", "rwkv6-3b", "--device", "cpu", "--requests", "5",
+                            "--slots", "3", "--max-new", "4"])
+    assert len(done) == 5 and all(len(r.out) == 4 for r in done)
+    line = buf.getvalue().splitlines()[0]
+    assert line.startswith("rwkv6-3b: served 5 requests (20 new tokens)") and "tok/s" in line
+    rng = np.random.default_rng(0)
+    for r in sorted(done, key=lambda r: r.rid):
+        plen = int(rng.integers(3, 32))
+        assert r.prompt == list(rng.integers(1, 256, plen))
 
 
 def test_engine_refuses_prompts_without_room():

@@ -190,11 +190,21 @@ def test_loss_fn_matches_jax(arch):
     assert err <= CE_RTOL
 
 
-def test_loss_fn_refuses_extra_embeds():
+def test_loss_fn_with_extra_embeds_matches_jax():
+    """A ``batch["extra_embeds"]`` prefix (B, 5, D), prepended and scored
+    nowhere (``transformer.py``'s modality prefix), against JAX's loss."""
+    _, japi, jp, _ = _jax_model("qwen1.5-0.5b")
     cfg, api = _port_model("qwen1.5-0.5b")
-    b = _torch_batch(_batch(cfg))
-    with pytest.raises(NotImplementedError, match="item 9c"):
-        api.loss_fn(api.init_params(0, device="cpu"), {**b, "extra_embeds": torch.zeros(1)})
+    b = dict(_batch(cfg))
+    b["extra_embeds"] = np.random.default_rng(7).standard_normal(
+        (BATCH, 5, cfg.d_model)).astype(np.float32)
+    want = float(japi.loss_fn(jp, jax.tree_util.tree_map(jnp.asarray, b)))
+    p = interop.lm_params_from_numpy(_np(jp), cfg, device="cpu")
+    with torch.no_grad():
+        got = api.loss_fn(p, _torch_batch(b))
+    err = _rel(got, want)
+    print(f"loss_fn with extra_embeds: rel {err:.2e} (bound {CE_RTOL})")
+    assert err <= CE_RTOL
 
 
 # ------------------------------------------------------------ one train step --
