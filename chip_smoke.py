@@ -227,6 +227,28 @@ o. At ``smoke_config`` (f32, TF32 off) the card against the port's CPU run
    memory, the bytes of the params (beside ``n_params()``'s count) and of
    the cache or state. The launch counts, set to 0 before the phase, read
    0 after it.
+p. The fused kernel's tile autotuner at 576×1024, T = (1, 3), batch 2:
+   every candidate tile (``autotune.candidates``) of every distinct fused
+   layer shape on seeded inputs, bit-equal to the shape rule's tile and to
+   the plain version, its launch plan's shared memory equal to the
+   library's plan query (``fp.tile_plan``); each shape's candidate times
+   (CUDA events, launches queued behind a spin) and winner beside the
+   rule's tile. The committed ``kernels/autotune_cache.json`` must name
+   this card and the current kernel hash and cover every shape at batches
+   2, 8 and 64 (the frame's, and the engine's at 8 and 64 streams, which
+   phase h ran with), and the serving plan must carry its batch-2 tiles;
+   the 27 launches of frame 0 are timed at the plan's
+   tiles and at the rule's, and a frame of a tuned and of an untuned
+   session (27 launches each), in turns.
+q. ``launch.dryrun`` for every ``h100`` cell of qwen1.5-0.5b, olmoe-1b-7b,
+   rwkv6-3b, zamba2-7b and llava-next-34b (meta tensors): each parameter
+   tree's bytes equal to phases l, m and o's real trees; the roofline
+   table; phase m's qwen step's counted FLOPs over its measured time
+   (achieved TFLOP/s beside the 989 TFLOP/s data-sheet peak; printed, not
+   gated); ``detector_dryrun``'s 576×1024 roofline terms and its shard
+   check on the card (4 column shards of 8 input block columns): every
+   layer before the first whose map a shard cuts inside a block bit-equal
+   to the whole forward's columns, and that layer the one reported.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error and times.
@@ -3018,6 +3040,218 @@ def phase_lm_families(dev, tag) -> dict:
     return out
 
 
+AUTOTUNE_ITERS = 5  # batches of 10 timed launches per candidate tile (the median is kept)
+
+
+def phase_autotune(dev, det, frames, captured, tag) -> dict:
+    """(p) The fused kernel's tile autotuner at 576×1024, T=(1, 3), batch 2.
+    Every candidate tile of every distinct fused layer shape runs seeded
+    inputs (``autotune.synthetic_layer``) bit-equal to the shape rule's
+    tile and to the plain version, its plan's shared memory equal to the
+    library's query (``fp.tile_plan``) and the rule's launch to
+    ``fp.rule_tile``; each shape's candidate times and winner are printed.
+    The committed cache must name this card and the current kernel hash
+    and cover every shape at ``autotune.TUNE_BATCHES``; the serving plan
+    must carry its tiles. Then the main path's 27 launches (frame 0's captured inputs)
+    timed at the plan's tiles and at the shape rule's, and one frame of the
+    tuned and of an untuned session (27 launches each)."""
+    from repro_torch import backend
+    from repro_torch.kernels import autotune as at
+    from repro_torch.kernels import fused_pipeline as fp
+    from repro_torch.models import snn_yolo as sy
+
+    cfg = det.cfg
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shapes = at.detector_layer_shapes(cfg)
+    winners, n_checked = {}, 0
+    for name, shape in shapes.items():
+        if at.cache_key(shape, BATCH) in winners:
+            continue
+        x, live, affine = at.synthetic_layer(shape, batch=BATCH, device=dev)
+        kw = dict(kout=shape.kout, kh=shape.kh, kw=shape.kw, bh=shape.bh, bw=shape.bw,
+                  t_out=shape.t_out, bn_scale=cfg.threshold, threshold=cfg.threshold,
+                  leak=cfg.leak)
+        want = fp.fused_pipeline_reference(x, live.w, live.taps, affine, None, **kw)
+        at_rule = at.layer_call(shape, x, live, affine, None, threshold=cfg.threshold,
+                                leak=cfg.leak)()
+        rule_plan = fp.last_plan()
+        rule = at.rule(shape, BATCH, sms)
+        if (rule_plan["steps_per_pass"], rule_plan["tile_pixels"], rule_plan["tile_channels"]) \
+                != (rule.tb, 16 * rule.wm, 8 * rule.ni * rule.wn):
+            raise AssertionError(f"p: the kernel's rule ran {rule_plan} at {name}; "
+                                 f"autotune.rule says {rule}")
+        walls = {}
+        for tile in at.candidates(shape):
+            run = at.layer_call(shape, x, live, affine, tile, threshold=cfg.threshold,
+                                leak=cfg.leak)
+            spk, mem = run()
+            plan = fp.last_plan()
+            torch.cuda.synchronize()
+            for ref, what in ((at_rule, "the rule's tile"), (want, "the plain version")):
+                if not (bits_equal(spk, ref[0]) and bits_equal(mem, ref[1])):
+                    raise AssertionError(f"p: tile {tile} != {what} at {name} {shape.key}")
+            smem, _ = fp.tile_plan(tile, c=x.shape[-1], kp=live.w.shape[2],
+                                   n_live=len(live.taps), kh=shape.kh, bh=shape.bh,
+                                   bw=shape.bw)
+            if (plan["smem_bytes"], plan["steps_per_pass"], plan["tile_pixels"],
+                    plan["tile_channels"]) != (smem, tile.tb, 16 * tile.wm,
+                                               8 * tile.ni * tile.wn):
+                raise AssertionError(f"p: tile {tile} at {name} ran plan {plan}; the "
+                                     f"library's plan query says {smem} bytes")
+            n_checked += 1
+            walls[tile] = at.measure(run, iters=AUTOTUNE_ITERS)
+        win = winners[at.cache_key(shape, BATCH)] = at.pick(walls, rule)
+        print(json.dumps({"phase": "autotune_shape", "layer": name, "key": shape.key,
+                          "rule": at.tile_name(rule),
+                          "ms": {at.tile_name(t): v for t, v in walls.items()},
+                          "rule_ms": walls[rule], "winner": at.tile_name(win),
+                          "winner_ms": walls[rule if win is None else win], **tag}),
+              flush=True)
+        del x, live, affine, want, at_rule
+    committed = at.load_cache()
+    missing = at.check_cache([cfg])
+    if missing:
+        raise AssertionError(f"p: the committed cache {at.cache_path()} lacks {missing} "
+                             f"(or names another card / kernel hash)")
+    plan_tiles = {n: {b: det.plan.layers[n].tiles.get((b, s.h, s.w)) for b in at.TUNE_BATCHES}
+                  for n, s in shapes.items()}
+    want_tiles = {n: {b: at.lookup(s, committed, b) for b in at.TUNE_BATCHES}
+                  for n, s in shapes.items()}
+    if plan_tiles != want_tiles:
+        raise AssertionError(f"p: the serving plan's tiles {plan_tiles} are not the "
+                             f"committed cache's {want_tiles}")
+    agree = sum(committed[k] == w for k, w in winners.items())
+
+    # the main path's launches at the plan's tiles and at the rule's
+    names = [n for n in det.plan.layers if n != "head"]
+    sums = {"tuned": 0.0, "untuned": 0.0}
+    for name, args in zip(names, captured):
+        a = dict(args)
+        x, w_, taps, affine, v0 = (a.pop(k) for k in ("x", "w", "taps", "affine", "v0"))
+        if a["tile"] != det.plan.layers[name].tile_for(x):
+            raise AssertionError(f"p: {name} launched at {a['tile']}, its plan holds "
+                                 f"{det.plan.layers[name].tile_for(x)}")
+        for label, tile in (("tuned", a["tile"]), ("untuned", None)):
+            ms, _ = device_ms(lambda: fp.fused_pipeline(x, w_, taps, affine, v0,
+                                                        **{**a, "tile": tile}))
+            sums[label] += ms
+    untuned_det = sy.compile_detector(cfg, det.params, det.bn_state, device=dev, tile_cache={})
+    if any(lp.tiles for lp in untuned_det.plan.layers.values()):
+        raise AssertionError("p: tile_cache={} left a tuned tile in the plan")
+
+    def session_ms(d):
+        s_ = d.new_session(batch=BATCH)
+        backend.reset_launches()
+        walls_ = []
+        for k in range(10):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            s_.step(frames[k % N_FRAMES])
+            torch.cuda.synchronize()
+            walls_.append((time.perf_counter() - t) * 1e3)
+        if backend.launches[fp.KERNEL] != 27 * 10:
+            raise AssertionError(f"p: {backend.launches[fp.KERNEL]} fused launches in 10 "
+                                 "frames, want 27 a frame")
+        return statistics.median(walls_[1:])
+
+    frame = {"tuned_ms": session_ms(det), "untuned_ms": session_ms(untuned_det)}
+    frame["tuned_ms_again"] = session_ms(det)
+    frame["untuned_ms_again"] = session_ms(untuned_det)
+    out = {"shapes": len(winners), "candidates_checked": n_checked,
+           "moved_off_rule": sum(w is not None for w in winners.values()),
+           "committed_agrees": agree, "sum_27_tuned_ms": sums["tuned"],
+           "sum_27_untuned_ms": sums["untuned"], "frame": frame,
+           "cache": {"path": os.path.relpath(at.cache_path()), "device": at.device_name(),
+                     "kernel": at.kernel_version()},
+           "plan_tiles": {n: {b: at.tile_name(t) for b, t in bt.items()}
+                          for n, bt in plan_tiles.items()}}
+    print(json.dumps({"phase": "autotune", **out, "batch": BATCH,
+                      "input_hw": list(cfg.input_hw), **tag}), flush=True)
+    return out
+
+
+DRYRUN_ARCHS = ("qwen1.5-0.5b", "olmoe-1b-7b", "rwkv6-3b", "zamba2-7b", "llava-next-34b")
+# parameter bytes of the full-width bf16 trees that phase o builds on the card
+# (tree_bytes of the real tensors, as phase o prints them)
+FAMILY_PARAM_BYTES = {"rwkv6-3b": 6_146_954_240, "zamba2-7b": 13_501_134_144,
+                      "llava-next-34b": 68_895_275_008}
+DETECTOR_SHARDS = 4  # column shards of 8 input block columns each
+
+
+def phase_dryrun(dev, det, frames, lm, lm_train, families, tag) -> dict:
+    """(q) The dry-run on the card's machine: ``launch.dryrun`` for every
+    ``h100`` cell of five configs (meta tensors, no card work), each
+    parameter tree's bytes held equal to what phases l, m and o measured on
+    real tensors; the FLOPs of phase m's qwen1.5-0.5b step (seq 4096, batch
+    8 in 4 microbatches, remat) over its measured step time (achieved
+    TFLOP/s, a share of the 989 TFLOP/s data-sheet peak; printed, not
+    gated); the roofline table; and ``detector_dryrun``'s shard check at
+    576×1024 on the card: the shards' fused forwards equal the whole
+    forward's columns bit for bit up to the first layer whose map no longer
+    holds whole blocks in a shard, which must be the one the block grid
+    predicts."""
+    from repro_torch.benchmarks import detector_dryrun, roofline
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+
+    out_dir = os.path.join("artifacts", "dryrun_torch")
+    measured = {a: r["param_bytes"] for a, r in lm["serve"].items()}
+    measured.update({a: r["param_bytes"] for a, r in families["serve"].items()
+                     if "param_bytes" in r})
+    measured.update({a: r["state_bytes"]["params"] for a, r in lm_train["train"].items()})
+    t0 = time.perf_counter()
+    cells = {}
+    for arch in DRYRUN_ARCHS:
+        for shape in SHAPES:
+            rec = dryrun.run_cell(arch, shape, "h100", out_dir)
+            cells[f"{arch}__{shape}"] = rec
+            if rec["status"] != "ok":
+                continue
+            got = rec["static_bytes_per_device"]["params"]
+            for want in (measured.get(arch), FAMILY_PARAM_BYTES.get(arch)):
+                if want is not None and got != want:
+                    raise AssertionError(f"q: {arch}'s dry-run parameter bytes {got} != "
+                                         f"{want} measured on the card")
+    sweep_s = time.perf_counter() - t0
+    table = roofline.run(out_dir, "h100")
+    cfg = get_config("qwen1.5-0.5b")
+    step_shape = ShapeSpec("phase_m", 4096, 8, "train")
+    cost, meta = dryrun.step_cost(cfg, step_shape, n_microbatch=4)
+    step_ms = lm_train["train"]["qwen1.5-0.5b"]["step_ms_median"]
+    achieved = cost.flops / (step_ms / 1e3) / 1e12
+    mfu = {"flops": cost.flops, "product_flops": cost.product_flops, "bytes": cost.bytes,
+           "step_ms_median": step_ms, "achieved_tflops": achieved,
+           "share_of_989": achieved / 989.0,
+           "product_tflops": cost.product_flops / (step_ms / 1e3) / 1e12,
+           "bytes_per_s_share_of_3_35e12": cost.bytes / (step_ms / 1e3) / 3.35e12,
+           "remat": cfg.remat, **meta}
+    print(json.dumps({"phase": "dryrun_phase_m_step", **mfu, **tag}), flush=True)
+    roof = detector_dryrun.run(det.cfg)
+    shards = detector_dryrun.shard_check(det, frames[0], DETECTOR_SHARDS)
+    from repro_torch.models import snn_yolo as sy
+
+    # the first layer (in launch order) whose map a shard cuts inside a block
+    hw = sy.layer_hw(det.cfg)
+    order = [n for n in det.plan.layers if n != "head"]
+    predicted = next((n for n in order
+                      if (hw[n][1] // DETECTOR_SHARDS) % det.cfg.block_hw[1]), None)
+    before = order if predicted is None else order[:order.index(predicted)]
+    if (shards["first_differing_layer"] != predicted
+            or any(n not in shards["layers_equal"] for n in before)
+            or shards["head_bit_equal"] != (predicted is None)):
+        raise AssertionError(f"q: shard check {shards}; the block grid predicts the first "
+                             f"differing layer {predicted}")
+    print(json.dumps({"phase": "detector_shards", **shards, "predicted_first": predicted,
+                      "roofline": roof, **tag}), flush=True)
+    out = {"cells": len(cells), "sweep_s": sweep_s, "phase_m_step": mfu,
+           "detector_roofline": roof, "detector_shards": shards, "table": table}
+    print(json.dumps({"phase": "dryrun", "cells": len(cells), "sweep_s": sweep_s,
+                      "params_held": sorted(set(measured) | set(FAMILY_PARAM_BYTES)), **tag}),
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card",
@@ -3291,6 +3525,18 @@ def main() -> int:
     families = phase_lm_families(dev, tag)
     print(json.dumps({"phase": "elapsed", "after": "o", "s": time.perf_counter() - t_start}),
           flush=True)
+
+    # ------------------------------------------------ p. the tile autotuner
+    gc.collect()
+    torch.cuda.empty_cache()
+    tuned = phase_autotune(dev, det, frames, captured, tag)
+    print(json.dumps({"phase": "elapsed", "after": "p", "s": time.perf_counter() - t_start}),
+          flush=True)
+
+    # ------------------------------------------------------- q. the dry-run
+    dry = phase_dryrun(dev, det, frames, lm, lm_train, families, tag)
+    print(json.dumps({"phase": "elapsed", "after": "q", "s": time.perf_counter() - t_start}),
+          flush=True)
     sharded_launches = multi["sharded_eval"]["launches"]
     train_launches = trained["train"]["kernel_launches"]
     bl, el = benches["bench_launches"], benches["e2e_launches"]
@@ -3308,7 +3554,13 @@ def main() -> int:
         "bound_ms": totals["bound_ms"],
         "bound_by": max(bound_by, key=bound_by.get),
         "library_ms": totals["library_ms"],
-        "per": f"one frame of batch {BATCH}: sum over the {len(layers)} fused layers",
+        "per": f"one frame of batch {BATCH}: sum over the {len(layers)} fused layers, each "
+               "at its plan's tile (the committed autotune cache)",
+        "tile_argument": "launch_named: one of 6 tiles by index, -1 = the shape rule",
+        "sum_27_tuned_ms": tuned["sum_27_tuned_ms"],
+        "sum_27_untuned_ms": tuned["sum_27_untuned_ms"],
+        "autotune_frame_ms": tuned["frame"],
+        "autotune_candidates_bit_equal": tuned["candidates_checked"],
         "check": "bit-equal to the plain version, predecoded and packed weight modes",
         # the packed (in-kernel decode) mode is off the serving path: timed
         # at the same shapes on random pruned weights, never launched there

@@ -85,15 +85,22 @@ def _sources() -> dict[str, str]:
     }
 
 
-def _target(name: str, src: str) -> str:
+def source_hash(name: str) -> str:
+    """The build key of kernel library ``name``: a hash of its source, every
+    ``csrc/*.cuh`` header and the flags (16 hex digits). Any edit to them
+    changes it; the autotune cache is keyed by it."""
     h = hashlib.sha256()
     headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+    for path in [os.path.join(CSRC, f"{name}.cu")] + [os.path.join(CSRC, f) for f in headers]:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+    return h.hexdigest()[:16]
+
+
+def _target(name: str, src: str) -> str:
+    return os.path.join(BUILD_DIR, f"lib{name}-{source_hash(name)}.so")
 
 
 def load_kernels() -> dict[str, ctypes.CDLL]:

@@ -7,11 +7,10 @@ serving benchmarks, and the accuracy pipeline.
 Counterpart of ``benchmarks/run.py``: the same suites in the same order,
 each on ``--device`` (default: the card). ``--fast`` skips Table II's
 training cells and runs ``eval_map`` at smoke scale (its mAP is then not
-representative). The JAX suite's ``roofline`` collation is not here: it
-and ``benchmarks/detector_dryrun.py`` read TPU dry-run HLO artifacts, and
-their torch analogue waits for ROADMAP queue 1 item 9. A suite that raises
-is reported and the run goes on; the runner then prints ``FAILED suites:
-[...]`` and exits 1.
+representative). ``roofline`` collates the dry-run artifacts
+(``python -m repro_torch.launch.dryrun --all``) and prints a skip message
+when there are none. A suite that raises is reported and the run goes on;
+the runner then prints ``FAILED suites: [...]`` and exits 1.
 """
 from __future__ import annotations
 
@@ -32,6 +31,7 @@ def suites(fast: bool, device) -> list:
         fig15_mixed_t,
         fig17_dram,
         kernel_bench,
+        roofline,
         serve_bench,
         table1_ablation,
         table2_models,
@@ -58,6 +58,7 @@ def suites(fast: bool, device) -> list:
             device=device,
         )),
         ("serve_bench", lambda: serve_bench.run(device=device)),
+        ("roofline", lambda: roofline.run()),
     ]
 
 

@@ -71,8 +71,9 @@ def queued_device_ms(fn, dev: torch.device) -> float:
 
 def kernel_breakdown(fn, dev: torch.device) -> dict | None:
     """Device time of one call of ``fn`` by kernel, from ``torch.profiler``
-    (CUPTI): the total and the ``TOP_KERNELS`` kernels by time, as [name,
-    ms, launches]. None when the profiler recorded no device time."""
+    (CUPTI): the total, the ``TOP_KERNELS`` kernels by time, as [name, ms,
+    launches], and the fused pipeline kernel's ms over all its tiles. None
+    when the profiler recorded no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -89,7 +90,8 @@ def kernel_breakdown(fn, dev: torch.device) -> dict | None:
         return None
     rows.sort(key=lambda r: -r[1])
     return {"total_ms": sum(r[1] for r in rows), "kernels": rows[:TOP_KERNELS],
-            "kernel_launches": sum(r[2] for r in rows)}
+            "kernel_launches": sum(r[2] for r in rows),
+            "fused_pipeline_ms": sum(r[1] for r in rows if "fused_pipeline_kernel" in r[0])}
 
 
 def run_executors(cfg, params, bn, streams, *, slots: int, device) -> dict:

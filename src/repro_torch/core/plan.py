@@ -50,6 +50,13 @@ class CompressedLayerPlan(NamedTuple):
     nnz: int
     live: kops.LiveWeights  # the fused kernel's operand, decoded once on the device
     compressed: kops.PackedTensors  # maskp, vals, tap_any on the device (gated kernel)
+    # the fused kernel's tuned tiles (autotune.TileConfig) by launch shape
+    # (N, H, W); a launch at any other shape keeps the kernel's rule
+    tiles: dict = {}
+
+    def tile_for(self, x: torch.Tensor):
+        """The tile for a launch on ``x`` (t, N, H, W, C); None: the rule."""
+        return self.tiles.get(tuple(x.shape[1:4]))
 
     @property
     def dense_bytes(self) -> int:
@@ -98,7 +105,7 @@ class DetectorPlan(NamedTuple):
 
 
 def build_layer_plan(
-    name: str, w: torch.Tensor, *, weight_bits: int = 8, in_bits: int = 1
+    name: str, w: torch.Tensor, *, weight_bits: int = 8, in_bits: int = 1,
 ) -> CompressedLayerPlan:
     """Quantize + bitmask-pack one HWIO kernel and decode it for the kernel
     on ``w``'s device."""
@@ -119,24 +126,44 @@ def build_layer_plan(
     )
 
 
-def build_plan(params: Any, cfg) -> DetectorPlan:
+def build_plan(params: Any, cfg, *, tile_cache: dict | None = None) -> DetectorPlan:
     """Compile the whole (already pruned) detector parameter dict in one
     pass, on the device the weights live on. The encode layer takes 8-bit
-    input; every other layer binary spikes. K-blocks are the defaults: the
-    JAX package's autotune cache holds TPU tilings, which do not apply to
-    this kernel."""
+    input; every other layer binary spikes. K-blocks are the defaults.
+
+    ``tile_cache``: (layer shape, batch) key → the fused kernel's tile
+    (:mod:`repro_torch.kernels.autotune`). ``None`` consults the packaged
+    autotune cache (a missing, stale or foreign one means no tuned tile);
+    ``{}`` keeps the kernel's shape rule for every layer. Each layer keeps
+    its tiles by launch shape, checked here against the kernel once; a
+    launch at a batch the cache was not tuned at keeps the rule. A tile
+    changes the speed, never the numerics."""
+    from repro_torch.kernels import autotune  # lazy: autotune reads snn_yolo's layers
+    from repro_torch.kernels import fused_pipeline as fp
+
     if not cfg.weight_bits:
         raise ValueError(
             "build_plan requires quantized weights (cfg.weight_bits > 0); "
             "weight_bits=0 means float weights, which only conv_exec='dense' runs"
         )
-    layers = {
-        name: build_layer_plan(
+    shapes = autotune.detector_layer_shapes(cfg)
+    if tile_cache is None:
+        tile_cache = autotune.packaged_cache()
+    bh, bw = cfg.block_hw
+    layers = {}
+    for name, layer_p in params.items():
+        lp = build_layer_plan(
             name, layer_p["w"], weight_bits=cfg.weight_bits,
             in_bits=8 if name == "encode" else 1,
         )
-        for name, layer_p in params.items()
-    }
+        shape = shapes.get(name)
+        tiles = {} if shape is None else autotune.tiles_for(shape, tile_cache)
+        for tile in tiles.values():  # an illegal tile raises here, not at a launch
+            fp.check_tile(tuple(tile), t_in=shape.t_in, c=lp.packed.cin, kp=lp.packed.kp,
+                          n_live=len(lp.live.taps), kh=shape.kh, bh=bh, bw=bw,
+                          on_card=layer_p["w"].device.type == "cuda")
+        layers[name] = lp._replace(
+            tiles={(b, shape.h, shape.w): t for b, t in tiles.items()})
     return DetectorPlan(layers=layers, block_hw=tuple(cfg.block_hw))
 
 
@@ -311,4 +338,5 @@ def run_fused(
         bh=bh,
         bw=bw,
         weights=lp.live,
+        tile=lp.tile_for(x),
     )

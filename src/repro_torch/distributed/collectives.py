@@ -21,8 +21,11 @@ Under the gloo backend, tensors on a card are staged through the host
 (``_to_wire`` / copy back); under NCCL they travel from the card. gloo in
 the torch versions this runs on implements every op and dtype used here
 (``all_gather``, ``all_reduce``, ``all_to_all_single`` on bool, uint8,
-int8, int32, float32, bfloat16). ``overlap_allgather_matmul`` is ROADMAP
-queue 1 item 9d.
+int8, int32, float32, bfloat16).
+
+* :func:`overlap_allgather_matmul` — ``x @ w`` with ``w`` row-sharded over
+  a mesh axis: a ring of ``batch_isend_irecv`` transfers, each in flight
+  while the matmul of the shard in hand runs.
 """
 from __future__ import annotations
 
@@ -207,3 +210,42 @@ def hierarchical_psum(ctx, pod_group, data_group):
 
     return f
 
+
+
+def overlap_allgather_matmul(mesh, axis_name: str = "model"):
+    """Returns ``f(x, w)`` = ``x @ all_gather(w)`` for ``w`` row-sharded over
+    ``axis_name`` of the DeviceMesh ``mesh`` (a DTensor sharded on dim 0
+    there, or this rank's (k/n, out) shard) and ``x`` (m, k) whole on every
+    rank. Step i multiplies the shard in hand — rank r holds shard
+    (r − i) mod n — while the next one travels around the ring (send to
+    r + 1, receive from r − 1). The n partial products are summed in shard
+    order, so every rank returns the same bits."""
+    group = mesh.get_group(axis_name)
+    n = dist.get_world_size(group)
+    r = dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (r + 1) % n)
+    prv = dist.get_global_rank(group, (r - 1) % n)
+
+    def f(x: torch.Tensor, w) -> torch.Tensor:
+        from torch.distributed.tensor import DTensor
+
+        w_cur = (w.to_local() if isinstance(w, DTensor) else w).contiguous()
+        k = w_cur.shape[0]
+        gloo = dist.get_backend(group) == "gloo"
+        parts: list = [None] * n
+        for i in range(n):
+            src = (r - i) % n
+            reqs, w_nxt = [], None
+            if i < n - 1:
+                send = w_cur.cpu() if gloo else w_cur
+                w_nxt = torch.empty_like(send)
+                reqs = dist.batch_isend_irecv([dist.P2POp(dist.isend, send, nxt, group),
+                                               dist.P2POp(dist.irecv, w_nxt, prv, group)])
+            parts[src] = x[:, src * k:(src + 1) * k] @ w_cur
+            for q in reqs:
+                q.wait()
+            if w_nxt is not None:
+                w_cur = w_nxt.to(w_cur.device)
+        return torch.stack(parts).sum(0)
+
+    return f

@@ -62,6 +62,8 @@
 //  * tiles by shape (launch()): one step per pass over 128 pixels x 16 or
 //    32 channels, or 64 (32 where 64 leaves SMs idle) x 64 channels; four
 //    steps per pass over 64 x 32 or 32 x 64 for the maps of <= 8192 pixels.
+//    A caller may name one of these six tiles instead (launch_named: the
+//    tile a plan's autotune cache chose).
 //
 // Semantics kept from the TPU kernel:
 //  * block convolution: each bh x bw block sees replicate padding at its
@@ -384,12 +386,17 @@ int g_last_plan[kPlanInts];
 // Packed weights that do not fit in shared memory go to one tile built to
 // decode the streamed chunks (kStream): 32 pixels x 64 channels, 4 steps a
 // pass, so a chunk is decoded once per 4 steps of a tile.
+// ``named``: the caller chose this tile (launch_named), which then runs as
+// it is or not at all.
 template <int TB, int NI, int WM, int WN, bool kStream = false>
-int launch_tile(Params& p, bool packed, cudaStream_t s) {
+int launch_tile(Params& p, bool packed, cudaStream_t s, bool named = false) {
   using T = Tile<TB, NI, WM, WN>;
   const int smem = plan_smem(p, TB, T::BP, T::BN, packed, 5 * T::BN * 4, false);
   if constexpr (!kStream) {
-    if (packed && smem >= 0 && !p.resident) return launch_tile<4, 2, 2, 4, true>(p, packed, s);
+    if (packed && smem >= 0 && !p.resident) {
+      if (named) return (int)cudaErrorInvalidValue;
+      return launch_tile<4, 2, 2, 4, true>(p, packed, s);
+    }
   }
   return launch_persistent<T>(fused_pipeline_kernel<TB, NI, WM, WN, kStream>, p, smem, s,
                               g_last_plan);
@@ -417,21 +424,85 @@ int launch(Params& p, bool packed, cudaStream_t s) {
   return launch_tile<1, 2, 2, 4>(p, packed, s);
 }
 
+// A tile named by its index in the table below (the autotuner's choice,
+// repro_torch/kernels/fused_pipeline.py TILES), or -1 for launch()'s shape
+// rule. A named tile that cannot run this layer is refused, never
+// replaced: four steps a pass where there is one conv (t_in == 1), a
+// plan that does not fit in shared memory, or packed weights that would
+// have to stream (the stream tile is launch()'s own choice).
+int launch_named(Params& p, bool packed, int tile, cudaStream_t s) {
+  constexpr int kTb[] = {4, 4, 1, 1, 1, 1};
+  if (tile == -1) return launch(p, packed, s);
+  if (tile < 0 || tile > 5 || (kTb[tile] == 4 && p.t_in == 1))
+    return (int)cudaErrorInvalidValue;
+  switch (tile) {
+    case 0: return launch_tile<4, 2, 4, 2>(p, packed, s, true);
+    case 1: return launch_tile<4, 2, 2, 4>(p, packed, s, true);
+    case 2: return launch_tile<1, 2, 8, 1>(p, packed, s, true);
+    case 3: return launch_tile<1, 4, 8, 1>(p, packed, s, true);
+    case 4: return launch_tile<1, 4, 4, 2>(p, packed, s, true);
+    default: return launch_tile<1, 2, 2, 4>(p, packed, s, true);
+  }
+}
+
+// The shared-memory plan of a named tile, without a launch (plan_tile).
+template <int TB, int NI, int WM, int WN>
+int tile_smem(Params& p, bool packed) {
+  using T = Tile<TB, NI, WM, WN>;
+  return plan_smem(p, TB, T::BP, T::BN, packed, 5 * T::BN * 4, false);
+}
+
 }  // namespace
+
+// The plan launch_named would give tile ``tile`` (an index of its table)
+// for a layer of c input channels, kp padded output channels and n_live
+// live taps of a kh x kh kernel in bh x bw blocks, without launching: the
+// dynamic shared memory in bytes (-1: the tile cannot run the layer; -2:
+// the arguments describe no layer), and in *resident whether the weights
+// stay resident in shared memory (a named tile refuses packed weights that
+// would stream). repro_torch/kernels/fused_pipeline.py check_tile asks it
+// before a named tile's first launch.
+extern "C" int fused_pipeline_tile_plan(int tile, int c, int kp, int kh, int bh, int bw,
+                                        int n_live, int packed, int kblk, int* resident) {
+  if (tile < 0 || tile > 5 || c < 4 || c % 4 != 0 || kp < 4 || kp % 4 != 0 || kh < 1 ||
+      kh % 2 != 1 || bh < 1 || bw < 1 || n_live < 0 || n_live > kMaxTaps ||
+      (packed && (c % 8 != 0 || kblk < 8 || kblk % 8 != 0)))
+    return -2;
+  Params p{};
+  p.c = c;
+  p.kp = kp;
+  p.pad = (kh - 1) / 2;
+  p.bh = bh;
+  p.bw = bw;
+  p.n_live = n_live;
+  p.taps_total = kh * kh;
+  p.kblk = kblk;
+  int smem;
+  switch (tile) {
+    case 0: smem = tile_smem<4, 2, 4, 2>(p, packed); break;
+    case 1: smem = tile_smem<4, 2, 2, 4>(p, packed); break;
+    case 2: smem = tile_smem<1, 2, 8, 1>(p, packed); break;
+    case 3: smem = tile_smem<1, 4, 8, 1>(p, packed); break;
+    case 4: smem = tile_smem<1, 4, 4, 2>(p, packed); break;
+    default: smem = tile_smem<1, 2, 2, 4>(p, packed); break;
+  }
+  *resident = p.resident;
+  return smem;
+}
 
 extern "C" int fused_pipeline_launch(const void* x, const void* w, const void* affine,
                                      const void* v0, void* spk, void* mem, int t_in, int t_out,
                                      int n, int h, int w_, int c, int kout, int kp, int kh,
                                      int kw, int bh, int bw, const int* taps, int n_live,
                                      float bn_scale, float threshold, float leak,
-                                     float v_init, int soft_reset, void* stream) {
+                                     float v_init, int soft_reset, int tile, void* stream) {
   Params p;
   if (!fill_params(p, x, affine, v0, spk, mem, t_in, t_out, n, h, w_, c, kout, kp, kh, kw, bh,
                    bw, taps, n_live, bn_scale, threshold, leak, v_init, soft_reset))
     return (int)cudaErrorInvalidValue;
   p.w = static_cast<const uint8_t*>(w);
   if (p.npix == 0) return 0;
-  return launch(p, false, static_cast<cudaStream_t>(stream));
+  return launch_named(p, false, tile, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fused_pipeline_packed_launch(
@@ -439,7 +510,7 @@ extern "C" int fused_pipeline_packed_launch(
     void* spk, void* mem, int t_in, int t_out, int n, int h, int w_, int c, int kout,
     int kb_total, int kblk, int vpad, int kh, int kw, int bh, int bw, const int* taps,
     int n_live, float bn_scale, float threshold, float leak, float v_init, int soft_reset,
-    void* stream) {
+    int tile, void* stream) {
   Params p;
   if (c % 8 != 0 || kblk % 8 != 0 || kb_total < 1 || vpad < 1 ||
       !fill_params(p, x, affine, v0, spk, mem, t_in, t_out, n, h, w_, c, kout,
@@ -452,7 +523,7 @@ extern "C" int fused_pipeline_packed_launch(
   p.vpad = vpad;
   p.taps_total = kh * kw;
   if (p.npix == 0) return 0;
-  return launch(p, true, static_cast<cudaStream_t>(stream));
+  return launch_named(p, true, tile, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" void fused_pipeline_last_plan(int* out) {

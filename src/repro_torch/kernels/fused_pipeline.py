@@ -37,6 +37,76 @@ AFFINE_ROWS = 5  # FXP scale, tdBN mean, rsqrt(var+eps), gamma, beta
 KERNEL = "fused_pipeline"  # the library, and the predecoded mode's launch count
 KERNEL_PACKED = "fused_pipeline_packed"  # the packed mode's launch count
 
+# The tiles a caller may name, in the order of ``launch_named``'s table in
+# csrc/fused_pipeline.cu: (steps per pass, n8 tiles per warp, warps along
+# the pixels, warps along the channels). A tile covers 16·wm pixels ×
+# 8·ni·wn output channels. ``tile=None`` keeps the kernel's shape rule
+# (:func:`rule_tile`).
+TILES = ((4, 2, 4, 2), (4, 2, 2, 4), (1, 2, 8, 1), (1, 4, 8, 1), (1, 4, 4, 2), (1, 2, 2, 4))
+TIME_BATCH_PIX = 8192  # kTimeBatchPix: the largest map the rule batches over time
+DEFAULT_SMS = 132  # an H100 SXM's multiprocessors, where no card is asked
+
+
+def rule_tile(t_in: int, npix: int, kout: int, sms: int = DEFAULT_SMS) -> tuple:
+    """The tile ``launch()`` picks by shape (``npix`` = N·H·W)."""
+    if t_in > 1 and npix <= TIME_BATCH_PIX:
+        return TILES[0] if kout <= 32 else TILES[1]
+    if kout <= 16:
+        return TILES[2]
+    if kout <= 32:
+        return TILES[3]
+    blocks64 = -(-npix // 64) * -(-kout // 64)
+    return TILES[4] if blocks64 >= sms else TILES[5]
+
+
+@functools.cache
+def tile_plan(tile, *, c: int, kp: int, n_live: int, kh: int, bh: int, bw: int,
+              packed: bool = False, kblk: int = 0) -> tuple[int, bool]:
+    """(dynamic shared-memory bytes, weights resident) of ``tile``'s plan for
+    a layer, asked of the built library (``fused_pipeline_tile_plan``: the
+    kernel's own ``plan_smem``, no launch), so the card's. -1 bytes: the
+    tile cannot run the layer. ``c`` is the padded input channel count the
+    kernel sees, ``kp`` the padded output width."""
+    fn = backend.load_kernels()[KERNEL].fused_pipeline_tile_plan
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
+    resident = ctypes.c_int(0)
+    smem = fn(TILES.index(tuple(tile)), c, kp, kh, bh, bw, n_live, int(packed), kblk,
+              ctypes.byref(resident))
+    if smem == -2:
+        raise ValueError(f"no layer: C={c}, Kp={kp}, {kh}x{kh}, block ({bh},{bw}), "
+                         f"{n_live} live taps, packed={packed}, kblk={kblk}")
+    return smem, bool(resident.value)
+
+
+@functools.cache
+def check_tile(tile, *, t_in: int, c: int, kp: int, n_live: int, kh: int, bh: int,
+               bw: int, packed: bool = False, kblk: int = 0, on_card: bool = True) -> int:
+    """The index of ``tile`` in :data:`TILES`, or -1 for None (the shape
+    rule). Raises ValueError for a tile the kernel would refuse: one not in
+    the table, four steps a pass where there is one conv (t_in == 1), and,
+    ``on_card``, a plan that does not fit in shared memory or (packed)
+    weights that would have to stream (:func:`tile_plan`). Memoized: a
+    layer's launches ask once."""
+    if tile is None:
+        return -1
+    tile = tuple(int(v) for v in tile)
+    if tile not in TILES:
+        raise ValueError(f"tile {tile} is not one of the kernel's tiles {TILES}")
+    if tile[0] > 1 and t_in == 1:
+        raise ValueError(f"tile {tile} batches 4 steps a pass; this layer runs one conv "
+                         "(t_in == 1)")
+    if on_card:
+        smem, resident = tile_plan(tile, c=c, kp=kp, n_live=n_live, kh=kh, bh=bh, bw=bw,
+                                   packed=packed, kblk=kblk)
+        if smem < 0:
+            raise ValueError(f"tile {tile}: its shared-memory plan does not fit this layer "
+                             f"(C={c}, {n_live} live taps)")
+        if packed and not resident:
+            raise ValueError(f"tile {tile}: these packed weights do not fit in shared memory "
+                             "and stream through the kernel's own tile; pass tile=None")
+    return TILES.index(tile)
+
 
 def block_windows(
     x: torch.Tensor, taps: tuple, *, kh: int, kw: int, bh: int, bw: int
@@ -81,11 +151,15 @@ def fused_pipeline_reference(
     leak: float,
     reset: str = "hard",
     v_init: float = 0.0,
+    tile: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of the kernel; same arguments and results
-    as :func:`fused_pipeline`. The conv is an im2col product of integer-
-    valued f32 (every partial sum is an integer below 2^24, so exact in any
-    summation order); the epilogue and LIF are one eager op per step."""
+    as :func:`fused_pipeline` (``tile`` names a kernel tile, which the plain
+    version has none of: it changes nothing). The conv is an im2col product
+    of integer-valued f32 (every partial sum is an integer below 2^24, so
+    exact in any summation order); the epilogue and LIF are one eager op per
+    step."""
+    del tile
     t_in, n, h, wd, c = x.shape
     n_live = len(taps)
     kp = w.shape[2]
@@ -192,6 +266,7 @@ def fused_pipeline(
     leak: float,
     reset: str = "hard",
     v_init: float = 0.0,
+    tile: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """One launch for a whole layer, predecoded weights.
 
@@ -199,7 +274,10 @@ def fused_pipeline(
     pixel values; C % 4 == 0. w: (L, C/4, Kp, 4) int8 — the live taps'
     weights, each channel quad innermost (:func:`repro_torch.kernels.ops.
     predecode`). taps: the L live tap indices. affine: (5, Kp) f32. v0:
-    (N, H, W, kout) f32, or None for a cold start at ``v_init``.
+    (N, H, W, kout) f32, or None for a cold start at ``v_init``. tile: one
+    of :data:`TILES`, or None for the kernel's shape rule; it changes the
+    speed, never the result, and an illegal one raises ValueError
+    (:func:`check_tile`; the shared-memory plan is checked on the card).
 
     Returns (spikes (t_out, N, H, W, kout) uint8 {0,1}, membrane
     (N, H, W, kout) f32)."""
@@ -211,6 +289,9 @@ def fused_pipeline(
                          f"and {len(taps)} live taps")
     _check(x, taps, affine, v0, w.shape[2], kout, kh, kw, bh, bw, t_out, reset,
            (("w", w),))
+    tile_idx = check_tile(None if tile is None else tuple(tile), t_in=x.shape[0],
+                          c=x.shape[-1], kp=w.shape[2], n_live=len(taps), kh=kh, bh=bh,
+                          bw=bw, on_card=x.device.type == "cuda")
     kwargs = dict(kout=kout, kh=kh, kw=kw, bh=bh, bw=bw, t_out=t_out,
                   bn_scale=bn_scale, threshold=threshold, leak=leak,
                   reset=reset, v_init=v_init)
@@ -220,7 +301,7 @@ def fused_pipeline(
         raise ValueError(f"fused_pipeline runs on cuda or cpu, not {x.device}")
     fn = _launcher("fused_pipeline_launch", 6, 12)
     return _launch(KERNEL, fn, (x.data_ptr(), w.data_ptr()), (w.shape[2],),
-                   x, taps, affine, v0, **kwargs)
+                   x, taps, affine, v0, tile=tile_idx, **kwargs)
 
 
 def fused_pipeline_packed(
@@ -242,6 +323,7 @@ def fused_pipeline_packed(
     leak: float,
     reset: str = "hard",
     v_init: float = 0.0,
+    tile: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """:func:`fused_pipeline` on bitmask-packed weights, decoded inside the
     kernel (the paper's on-chip decode; the JAX package's
@@ -259,6 +341,9 @@ def fused_pipeline_packed(
                          f"and a {kh}x{kw} kernel")
     _check(x, taps, affine, v0, kb_total * kblk, kout, kh, kw, bh, bw, t_out, reset,
            (("maskp", maskp), ("vals", vals)))
+    tile_idx = check_tile(None if tile is None else tuple(tile), t_in=x.shape[0],
+                          c=x.shape[-1], kp=kb_total * kblk, n_live=len(taps), kh=kh, bh=bh,
+                          bw=bw, packed=True, kblk=kblk, on_card=x.device.type == "cuda")
     kwargs = dict(kout=kout, kh=kh, kw=kw, bh=bh, bw=bw, t_out=t_out,
                   bn_scale=bn_scale, threshold=threshold, leak=leak,
                   reset=reset, v_init=v_init)
@@ -270,7 +355,8 @@ def fused_pipeline_packed(
         raise ValueError(f"fused_pipeline_packed runs on cuda or cpu, not {x.device}")
     fn = _launcher("fused_pipeline_packed_launch", 7, 14)
     return _launch(KERNEL_PACKED, fn, (x.data_ptr(), maskp.data_ptr(), vals.data_ptr()),
-                   (kb_total, kblk, vals.shape[1]), x, taps, affine, v0, **kwargs)
+                   (kb_total, kblk, vals.shape[1]), x, taps, affine, v0, tile=tile_idx,
+                   **kwargs)
 
 
 PLAN_KEYS = ("smem_bytes", "steps_per_pass", "tile_pixels", "tile_channels", "halo",
@@ -293,7 +379,7 @@ def _launcher(symbol: str, n_ptr: int, n_int: int):
     """A C entry point of the built library, with its signature declared
     once (ctypes would otherwise pass every argument as a 32-bit int): the
     pointers, the ints, the tap list, four floats, the reset flag, the
-    stream."""
+    tile index, the stream."""
     fn = getattr(backend.load_kernels()[KERNEL], symbol)
     fn.restype = ctypes.c_int
     fn.argtypes = (
@@ -301,13 +387,13 @@ def _launcher(symbol: str, n_ptr: int, n_int: int):
         + [ctypes.c_int] * n_int
         + [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
         + [ctypes.c_float] * 4
-        + [ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     )
     return fn
 
 
 def _launch(name, fn, weight_ptrs, weight_ints, x, taps, affine, v0, *, kout, kh, kw,
-            bh, bw, t_out, bn_scale, threshold, leak, reset, v_init):
+            bh, bw, t_out, bn_scale, threshold, leak, reset, v_init, tile):
     t_in, n, h, wd, c = x.shape
     spk = torch.empty((t_out, n, h, wd, kout), dtype=torch.uint8, device=x.device)
     mem = torch.empty((n, h, wd, kout), dtype=torch.float32, device=x.device)
@@ -317,7 +403,7 @@ def _launch(name, fn, weight_ptrs, weight_ints, x, taps, affine, v0, *, kout, kh
             *weight_ptrs, affine.data_ptr(), None if v0 is None else v0.data_ptr(),
             spk.data_ptr(), mem.data_ptr(), t_in, t_out, n, h, wd, c, kout,
             *weight_ints, kh, kw, bh, bw, tap_arr, len(taps), bn_scale, threshold,
-            leak, v_init, 1 if reset == "soft" else 0,
+            leak, v_init, 1 if reset == "soft" else 0, tile,
             torch.cuda.current_stream().cuda_stream,
         )
     backend.check_launch(err, name)

@@ -230,6 +230,7 @@ def fused_conv_bn_lif(
     bw: int,
     weights: LiveWeights | None = None,
     predecode_weights: bool = True,
+    tile: tuple | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The whole per-layer pipeline (conv → FXP rescale → tdBN affine → LIF
     over ``out_t`` steps) in one kernel launch. Returns (spikes (out_t, N,
@@ -238,9 +239,10 @@ def fused_conv_bn_lif(
     ``weights``: the layer's predecoded operand (a plan holds it); decoded
     from ``pw`` here when not given. ``predecode_weights=False`` hands the
     kernel the bitmask-packed weights instead, decoded inside it (the JAX
-    package's ``predecode=False``; both modes are bit-equal). The encode
-    layer passes its u8 pixel values — the exact fold of its 8 bit-serial
-    planes."""
+    package's ``predecode=False``; both modes are bit-equal). ``tile``: the
+    kernel's tile (a plan's autotuned one), None for its shape rule. The
+    encode layer passes its u8 pixel values — the exact fold of its 8
+    bit-serial planes."""
     c = x_t.shape[-1]
     if c > pw.cin:
         raise ValueError(f"input has {c} channels, weights {pw.cin}")
@@ -250,7 +252,7 @@ def fused_conv_bn_lif(
     v0 = None if v0 is None else v0.float().contiguous()
     kwargs = dict(kout=pw.kout, kh=pw.kh, kw=pw.kw, bh=bh, bw=bw, t_out=out_t,
                   bn_scale=bn_scale, threshold=threshold, leak=leak, reset=reset,
-                  v_init=v_init)
+                  v_init=v_init, tile=tile)
     if not predecode_weights:
         dev = x_t.device
         return fp.fused_pipeline_packed(

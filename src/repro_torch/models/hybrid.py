@@ -44,6 +44,18 @@ def init_params(gen: torch.Generator, cfg: LMConfig) -> dict:
     return p
 
 
+def param_axes(cfg: LMConfig) -> dict:
+    n_super, n_tail = split_layers(cfg)
+    p = {
+        "embed": L.embed_axes(cfg),
+        "mamba": tfm.stack_axes(mamba2.mamba_axes(cfg), ("layers", None)),
+        "shared_attn": tfm.layer_axes(cfg),
+    }
+    if n_tail:
+        p["tail"] = tfm.stack_axes(mamba2.mamba_axes(cfg), ("layers",))
+    return p
+
+
 class HybridCache(NamedTuple):
     mamba: mamba2.MambaState  # stacked (n_super, attn_every, B, ...)
     tail: Optional[mamba2.MambaState]  # stacked (n_tail, B, ...)

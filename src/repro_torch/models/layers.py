@@ -27,7 +27,9 @@ from repro_torch.configs.base import LMConfig
 
 def _init(gen: torch.Generator, shape, dtype, scale=None) -> torch.Tensor:
     scale = scale if scale is not None else 1.0 / np.sqrt(shape[0])
-    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
+    meta = gen.device.type == "meta"  # shapes only: no generator draws there
+    x = torch.randn(shape, generator=None if meta else gen, device=gen.device,
+                    dtype=torch.float32)
     return (x * float(scale)).to(dtype)
 
 
@@ -88,6 +90,20 @@ def attn_init(gen: torch.Generator, cfg: LMConfig) -> dict:
         p["bk"] = torch.zeros((nkv * hd,), dtype=dt, device=gen.device)
         p["bv"] = torch.zeros((nkv * hd,), dtype=dt, device=gen.device)
     return p
+
+
+def attn_axes(cfg: LMConfig) -> dict:
+    """The logical axes of :func:`attn_init`'s tree (``repro_torch.
+    distributed.sharding``)."""
+    a = {
+        "wq": ("embed", "qkv"),
+        "wk": ("embed", "qkv"),
+        "wv": ("embed", "qkv"),
+        "wo": ("qkv", "embed"),
+    }
+    if cfg.qkv_bias:
+        a |= {"bq": ("qkv",), "bk": ("qkv",), "bv": ("qkv",)}
+    return a
 
 
 class KVSlice(NamedTuple):
@@ -264,6 +280,10 @@ def mlp_init(gen: torch.Generator, cfg: LMConfig, d_ff: Optional[int] = None) ->
     }
 
 
+def mlp_axes(cfg: LMConfig) -> dict:
+    return {"wi": ("embed", "mlp"), "wg": ("embed", "mlp"), "wo": ("mlp", "embed")}
+
+
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu``'s formula, x·sigmoid(x)."""
     return x * torch.sigmoid(x)
@@ -296,6 +316,13 @@ def embed_init(gen: torch.Generator, cfg: LMConfig) -> dict:
     if not cfg.tie_embeddings:
         p["lm_head"] = _init(gen, (cfg.d_model, cfg.vocab_size), dt)
     return p
+
+
+def embed_axes(cfg: LMConfig) -> dict:
+    a = {"tok": ("vocab", "embed"), "final_norm": (None,)}
+    if not cfg.tie_embeddings:
+        a["lm_head"] = ("embed", "vocab")
+    return a
 
 
 def embed_tokens(tokens: torch.Tensor, p: dict) -> torch.Tensor:

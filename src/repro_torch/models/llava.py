@@ -28,6 +28,12 @@ def init_params(gen: torch.Generator, cfg: LMConfig) -> dict:
     return p
 
 
+def param_axes(cfg: LMConfig) -> dict:
+    a = tfm.param_axes(cfg)
+    a["mm_proj"] = {"w1": (None, "embed"), "w2": ("embed", "embed2")}
+    return a
+
+
 def project_patches(params, patches: torch.Tensor) -> torch.Tensor:
     """(B, P, D_VISION) stub features → (B, P, d_model) LM embeddings."""
     p = params["mm_proj"]

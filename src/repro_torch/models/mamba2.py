@@ -50,6 +50,19 @@ def mamba_init(gen: torch.Generator, cfg: LMConfig) -> dict:
     }
 
 
+def mamba_axes(cfg: LMConfig) -> dict:
+    return {
+        "in_proj": ("embed", "mlp"),
+        "conv_w": ("conv_k", "mlp"),
+        "A_log": (None,),
+        "D": (None,),
+        "dt_bias": (None,),
+        "out_norm": ("mlp",),
+        "out_proj": ("mlp", "embed"),
+        "ln": (None,),
+    }
+
+
 class MambaState(NamedTuple):
     h: torch.Tensor  # (B, nh, head_dim, d_state) SSM state
     conv: torch.Tensor  # (B, CONV_K-1, di + 2*ds) conv tail

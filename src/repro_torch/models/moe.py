@@ -36,6 +36,23 @@ def moe_init(gen: torch.Generator, cfg: LMConfig) -> dict:
     return p
 
 
+def moe_axes(cfg: LMConfig) -> dict:
+    """The logical axes of :func:`moe_init`'s tree: experts over 'model',
+    the per-expert FFN dims on an axis of their own (two dims of one
+    tensor cannot both take the 'model' mesh axis)."""
+    a = {
+        "router": ("embed", None),
+        "experts": {
+            "wi": ("experts", "embed", "expert_mlp"),
+            "wg": ("experts", "embed", "expert_mlp"),
+            "wo": ("experts", "expert_mlp", "embed"),
+        },
+    }
+    if cfg.n_shared_experts:
+        a["shared"] = L.mlp_axes(cfg)
+    return a
+
+
 def _capacity(n_tokens: int, cfg: LMConfig) -> int:
     cap = int(math.ceil(cfg.top_k * n_tokens / cfg.n_experts * cfg.capacity_factor))
     return max(cap, 8)
@@ -120,6 +137,10 @@ def moe_layer_init(gen: torch.Generator, cfg: LMConfig) -> dict:
         "ln1": torch.ones((cfg.d_model,), dtype=cfg.param_dtype, device=gen.device),
         "ln2": torch.ones((cfg.d_model,), dtype=cfg.param_dtype, device=gen.device),
     }
+
+
+def moe_layer_axes(cfg: LMConfig) -> dict:
+    return {"attn": L.attn_axes(cfg), "moe": moe_axes(cfg), "ln1": (None,), "ln2": (None,)}
 
 
 def moe_block(x, lp, cfg: LMConfig, *, positions, kv=None, cache_pos=None):

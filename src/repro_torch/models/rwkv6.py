@@ -68,6 +68,19 @@ def rwkv_init(gen: torch.Generator, cfg: LMConfig) -> dict:
     }
 
 
+def rwkv_axes(cfg: LMConfig) -> dict:
+    vec = (None,)
+    mat = ("embed", "heads")
+    return {
+        "ln1": vec, "ln2": vec,
+        "mu_r": vec, "mu_k": vec, "mu_v": vec, "mu_g": vec, "mu_w": vec,
+        "w_r": mat, "w_k": mat, "w_v": mat, "w_g": mat, "w_o": ("heads", "embed"),
+        "w0": vec, "w_a": ("embed", None), "w_b": (None, "heads"), "u": vec, "gn": vec,
+        "mu_cr": vec, "mu_ck": vec,
+        "c_r": ("embed", "heads"), "c_k": ("embed", "mlp"), "c_v": ("mlp", "embed"),
+    }
+
+
 class RWKVState(NamedTuple):
     s: torch.Tensor  # (B, H, hd, hd) wkv state
     x_tm: torch.Tensor  # (B, D) last token (time-mix shift)
@@ -213,6 +226,10 @@ def rwkv_block(x, lp, cfg: LMConfig, *, state: Optional[RWKVState] = None, chunk
 
 def init_params(gen: torch.Generator, cfg: LMConfig) -> dict:
     return tfm.init_params(gen, cfg, rwkv_init)
+
+
+def param_axes(cfg: LMConfig) -> dict:
+    return tfm.param_axes(cfg, rwkv_axes)
 
 
 def init_cache(cfg: LMConfig, batch: int, *, device) -> RWKVState:

@@ -602,7 +602,7 @@ def compile_detector(cfg: SNNDetConfig, params, bn_state=None, **kwargs):
         dets = det(frames)
         sess = det.new_session(batch=2)
 
-    ``**kwargs`` (device, anchors, thresholds, affines) go to
+    ``**kwargs`` (device, anchors, thresholds, affines, tile_cache) go to
     the ``CompiledDetector`` constructor."""
     from repro_torch.serve.detector import CompiledDetector  # import cycle
 

@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tu
 from repro_torch.configs.base import LMConfig
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 
 
@@ -44,6 +45,28 @@ def layer_init(gen: torch.Generator, cfg: LMConfig) -> dict:
         "ln1": torch.ones((cfg.d_model,), dtype=cfg.param_dtype, device=gen.device),
         "ln2": torch.ones((cfg.d_model,), dtype=cfg.param_dtype, device=gen.device),
     }
+
+
+def layer_axes(cfg: LMConfig) -> dict:
+    """The logical axes of :func:`layer_init`'s tree."""
+    return {
+        "attn": L.attn_axes(cfg),
+        "mlp": L.mlp_axes(cfg),
+        "ln1": (None,),
+        "ln2": (None,),
+    }
+
+
+def stack_axes(axes_tree, lead: tuple):
+    """``lead`` axis names put before every leaf of an axes tree: the
+    axes of a stacked (*lead, ...) parameter tree."""
+    return tu.tree_map(lambda axes: tuple(lead) + axes, axes_tree, is_leaf=shd.is_axes)
+
+
+def param_axes(cfg: LMConfig, layer_axes_fn=layer_axes) -> dict:
+    """The logical axes of :func:`init_params`'s tree. The port's layers
+    are always stacked, as a scanned JAX model's (``cfg.scan_layers``)."""
+    return {"embed": L.embed_axes(cfg), "layers": stack_axes(layer_axes_fn(cfg), ("layers",))}
 
 
 def layer_params(layers, i: int) -> dict:

@@ -23,6 +23,10 @@ def gelu_mlp_init(gen: torch.Generator, cfg: LMConfig) -> dict:
     }
 
 
+def gelu_mlp_axes(cfg):
+    return {"wi": ("embed", "mlp"), "wo": ("mlp", "embed")}
+
+
 def gelu_mlp(x, p):
     return L._mm(L.gelu(L._mm(x, p["wi"])), p["wo"])
 
@@ -40,6 +44,10 @@ def enc_layer_init(gen: torch.Generator, cfg: LMConfig) -> dict:
     }
 
 
+def enc_layer_axes(cfg):
+    return {"attn": L.attn_axes(cfg), "mlp": gelu_mlp_axes(cfg), "ln1": (None,), "ln2": (None,)}
+
+
 def dec_layer_init(gen: torch.Generator, cfg: LMConfig) -> dict:
     return {
         "self_attn": L.attn_init(gen, cfg),
@@ -51,11 +59,30 @@ def dec_layer_init(gen: torch.Generator, cfg: LMConfig) -> dict:
     }
 
 
+def dec_layer_axes(cfg):
+    return {
+        "self_attn": L.attn_axes(cfg),
+        "cross_attn": L.attn_axes(cfg),
+        "mlp": gelu_mlp_axes(cfg),
+        "ln1": (None,),
+        "ln_x": (None,),
+        "ln2": (None,),
+    }
+
+
 def init_params(gen: torch.Generator, cfg: LMConfig) -> dict:
     return {
         "embed": L.embed_init(gen, cfg),
         "encoder": tfm.init_stacked(gen, cfg, enc_layer_init, (cfg.encoder_layers,)),
         "decoder": tfm.init_stacked(gen, cfg, dec_layer_init, (cfg.n_layers,)),
+    }
+
+
+def param_axes(cfg: LMConfig) -> dict:
+    return {
+        "embed": L.embed_axes(cfg),
+        "encoder": tfm.stack_axes(enc_layer_axes(cfg), ("layers",)),
+        "decoder": tfm.stack_axes(dec_layer_axes(cfg), ("layers",)),
     }
 
 

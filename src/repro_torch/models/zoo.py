@@ -7,12 +7,18 @@ audio). Counterpart of ``repro/models/zoo.py``:
     decode_fn(params, cache, tok, pos)  -> (logits, cache)
     init_cache(batch, max_seq, ...)     -> cache (the recurrent state for ssm)
 
+    param_axes()                        -> logical-axis tree (the params' structure)
+    cache_axes(batch, max_seq)          -> logical-axis tree of the cache
+
 The vlm batch carries ``patches`` (B, n_patches, D_VISION) and the audio
 batch ``frames`` (B, encoder_seq, d_model), the stub frontends' outputs.
 The MoE loss goes through :func:`moe.moe_block`, which is what the JAX
 package's ``moe_block_ep`` computes on one device; the load-balance aux
-loss is discarded in both packages. The sharding metadata (``param_axes``,
-``cache_axes``, ``input_specs``) waits for ROADMAP queue 1 item 9d.
+loss is discarded in both packages.
+
+:func:`input_specs` gives ``meta``-device stand-ins for every input of an
+(arch × shape) cell (JAX's ``ShapeDtypeStruct`` s) and :func:`batch_axes`
+their logical axes: what ``launch/dryrun.py`` counts and lays out.
 """
 from __future__ import annotations
 
@@ -21,7 +27,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from repro_torch.backend import resolve_device
-from repro_torch.configs.base import LMConfig
+from repro_torch.configs.base import LMConfig, ShapeSpec
 from repro_torch.models import hybrid as hyb
 from repro_torch.models import layers as L
 from repro_torch.models import llava
@@ -38,20 +44,34 @@ class ModelAPI(NamedTuple):
     prefill_fn: Callable
     decode_fn: Callable
     init_cache: Callable  # (batch, max_seq, dtype=bf16, device=None) -> cache
+    param_axes: Callable  # () -> logical axes, the params' structure
+    cache_axes: Callable  # (batch, max_seq) -> logical axes, the cache's structure
+
+
+class _MetaGen(NamedTuple):
+    """Stands in for a generator on the ``meta`` device, which has none."""
+
+    device: torch.device = torch.device("meta")
 
 
 def _seeded(init_fn, cfg: LMConfig) -> Callable:
-    """``init_params(seed, device=None)`` over ``init_fn(gen, cfg)``."""
+    """``init_params(seed, device=None)`` over ``init_fn(gen, cfg)``;
+    ``device="meta"`` gives the tree's shapes and dtypes without memory
+    (JAX's ``eval_shape`` of ``init_params``)."""
 
     def init_params(seed: int = 0, *, device=None):
-        gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+        dev = resolve_device(device)
+        gen = _MetaGen() if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
         return init_fn(gen, cfg)
 
     return init_params
 
 
+KV_AXES = ("layers", "batch", "kv_seq", "kv_heads", None)
+
+
 def _dense_api(cfg: LMConfig, block_fn=tfm.dense_block, layer_init=tfm.layer_init,
-               mlp_fn=None) -> ModelAPI:
+               layer_ax=tfm.layer_axes, mlp_fn=None) -> ModelAPI:
     def init_cache(batch, max_seq, dtype=torch.bfloat16, *, device=None):
         dev = resolve_device(device)
         if cfg.kv_quant:
@@ -78,6 +98,12 @@ def _dense_api(cfg: LMConfig, block_fn=tfm.dense_block, layer_init=tfm.layer_ini
         return tfm.make_prefill_fn(cfg, block_fn)(params, tokens, valid_len=valid_len,
                                                   extra_embeds=extra_embeds)
 
+    def cache_axes(batch, max_seq):
+        if cfg.kv_quant:
+            sc = KV_AXES[:-1]
+            return tfm.QuantKVCache(KV_AXES, KV_AXES, sc, sc)
+        return tfm.KVCache(KV_AXES, KV_AXES)
+
     return ModelAPI(
         cfg=cfg,
         init_params=_seeded(lambda gen, c: tfm.init_params(gen, c, layer_init), cfg),
@@ -85,6 +111,8 @@ def _dense_api(cfg: LMConfig, block_fn=tfm.dense_block, layer_init=tfm.layer_ini
         prefill_fn=prefill,
         decode_fn=decode,
         init_cache=init_cache,
+        param_axes=lambda: tfm.param_axes(cfg, layer_ax),
+        cache_axes=cache_axes,
     )
 
 
@@ -97,7 +125,8 @@ def _moe_mlp_fn(cfg):
 
 
 def _moe_api(cfg: LMConfig) -> ModelAPI:
-    return _dense_api(cfg, moe.moe_block, moe.moe_layer_init, mlp_fn=_moe_mlp_fn(cfg))
+    return _dense_api(cfg, moe.moe_block, moe.moe_layer_init, moe.moe_layer_axes,
+                      mlp_fn=_moe_mlp_fn(cfg))
 
 
 def _vlm_api(cfg: LMConfig) -> ModelAPI:
@@ -111,6 +140,7 @@ def _vlm_api(cfg: LMConfig) -> ModelAPI:
         init_params=_seeded(llava.init_params, cfg),
         loss_fn=llava.make_loss_fn(cfg),
         prefill_fn=prefill,
+        param_axes=lambda: llava.param_axes(cfg),
     )
 
 
@@ -133,6 +163,18 @@ def _hybrid_api(cfg: LMConfig) -> ModelAPI:
     def init_cache(batch, max_seq, dtype=torch.bfloat16, *, device=None):
         return hyb.init_cache(cfg, batch, max_seq, dtype, device=resolve_device(device))
 
+    def cache_axes(batch, max_seq):
+        def st_axes(lead):
+            return hyb.mamba2.MambaState(h=lead + ("batch", "ssm_heads", None, None),
+                                         conv=lead + ("batch", None, "mlp"))
+
+        return hyb.HybridCache(
+            mamba=st_axes(("layers", None)),
+            tail=st_axes(("layers",)) if hyb.split_layers(cfg)[1] else None,
+            attn_k=KV_AXES,
+            attn_v=KV_AXES,
+        )
+
     return ModelAPI(
         cfg=cfg,
         init_params=_seeded(hyb.init_params, cfg),
@@ -140,6 +182,8 @@ def _hybrid_api(cfg: LMConfig) -> ModelAPI:
         prefill_fn=prefill,
         decode_fn=decode,
         init_cache=init_cache,
+        param_axes=lambda: hyb.param_axes(cfg),
+        cache_axes=cache_axes,
     )
 
 
@@ -162,6 +206,13 @@ def _ssm_api(cfg: LMConfig) -> ModelAPI:
         del max_seq  # O(1) in the sequence length
         return rwkv6.init_cache(cfg, batch, device=resolve_device(device))
 
+    def cache_axes(batch, max_seq):
+        return rwkv6.RWKVState(
+            s=("layers", "batch", "heads", None, None),
+            x_tm=("layers", "batch", "act_embed"),
+            x_cm=("layers", "batch", "act_embed"),
+        )
+
     return ModelAPI(
         cfg=cfg,
         init_params=_seeded(rwkv6.init_params, cfg),
@@ -169,6 +220,8 @@ def _ssm_api(cfg: LMConfig) -> ModelAPI:
         prefill_fn=prefill,
         decode_fn=decode,
         init_cache=init_cache,
+        param_axes=lambda: rwkv6.param_axes(cfg),
+        cache_axes=cache_axes,
     )
 
 
@@ -212,6 +265,9 @@ def _audio_api(cfg: LMConfig) -> ModelAPI:
         prefill_fn=prefill,
         decode_fn=decode,
         init_cache=init_cache,
+        param_axes=lambda: whisper.param_axes(cfg),
+        cache_axes=lambda batch, max_seq: whisper.WhisperCache(KV_AXES, KV_AXES, KV_AXES,
+                                                               KV_AXES),
     )
 
 
@@ -227,3 +283,61 @@ _FAMILIES = {
 
 def get_api(cfg: LMConfig) -> ModelAPI:
     return _FAMILIES[cfg.family](cfg)
+
+
+# ------------------------------------------------------------ input specs --
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: LMConfig, shape: ShapeSpec) -> dict:
+    """``meta`` tensors standing in for every input of this (arch × shape)
+    cell — no memory behind them:
+
+    train   -> {"batch": {...}}                         for loss_fn / a train step
+    prefill -> {"args": (tokens[, patches|frames],)}    for prefill_fn
+    decode  -> {"cache": ..., "token": ..., "pos": ...} for decode_fn
+    """
+    b, s = shape.global_batch, shape.seq_len
+    tok = _meta((b, s), torch.int32)
+    extra = None
+    if cfg.family == "vlm":
+        extra = _meta((b, cfg.n_patches, llava.D_VISION), torch.bfloat16)
+    if cfg.family == "audio":
+        extra = _meta((b, cfg.encoder_seq, cfg.d_model), torch.bfloat16)
+    if shape.kind == "train":
+        batch = {"tokens": tok, "labels": tok}
+        if extra is not None:
+            batch["patches" if cfg.family == "vlm" else "frames"] = extra
+        return {"batch": batch}
+    if shape.kind == "prefill":
+        return {"args": (tok,) if extra is None else (tok, extra)}
+    # decode: one new token against a populated cache of length S
+    return {
+        "cache": get_api(cfg).init_cache(b, s, device="meta"),
+        "token": _meta((b,), torch.int32),
+        "pos": _meta((), torch.int32),
+    }
+
+
+def batch_axes(cfg: LMConfig, shape: ShapeSpec) -> dict:
+    """The logical axes of :func:`input_specs`' tree."""
+    if shape.kind == "train":
+        axes = {"tokens": ("batch", None), "labels": ("batch", None)}
+        if cfg.family == "vlm":
+            axes["patches"] = ("batch", None, None)
+        if cfg.family == "audio":
+            axes["frames"] = ("batch", None, None)
+        return {"batch": axes}
+    if shape.kind == "prefill":
+        axes = [("batch", None)]
+        if cfg.family in ("vlm", "audio"):
+            axes.append(("batch", None, None))
+        return {"args": tuple(axes)}
+    return {
+        "cache": get_api(cfg).cache_axes(shape.global_batch, shape.seq_len),
+        "token": ("batch",),
+        "pos": (),
+    }

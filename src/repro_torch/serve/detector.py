@@ -78,7 +78,9 @@ class CompiledDetector:
     bn_state are moved there. ``affines``: optional {layer: (5, kout)}
     per-channel bundles to use instead of computing them — how a bundle
     built elsewhere (e.g. by the JAX package, see :mod:`repro_torch.
-    interop`) is carried over bit for bit."""
+    interop`) is carried over bit for bit. ``tile_cache``: the fused
+    kernel's tiles per layer shape (:func:`repro_torch.core.plan.
+    build_plan`; None: the packaged autotune cache, {}: the shape rule)."""
 
     def __init__(
         self,
@@ -92,6 +94,7 @@ class CompiledDetector:
         iou_threshold: float = 0.5,
         max_detections: int = 32,
         affines: dict | None = None,
+        tile_cache: dict | None = None,
     ):
         self.device = resolve_device(device)
         params = _to_device(params, self.device)
@@ -117,7 +120,8 @@ class CompiledDetector:
                 f"unknown conv_exec={cfg.conv_exec!r}; registered: "
                 f"{sorted(cplan.CONV_EXECUTORS)}"
             )
-        self._plan = cplan.build_plan(params, cfg) if cfg.weight_bits else None
+        self._plan = (cplan.build_plan(params, cfg, tile_cache=tile_cache)
+                      if cfg.weight_bits else None)
         self._compiled = _fingerprint(_weight_leaves(params))
         self._affines = None
         self._affine_compiled: tuple = ()

@@ -98,6 +98,22 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < f(cfg.warmup_steps), warm, decay)
 
 
+def state_axes(param_axes_tree: Any, cfg: AdamWConfig) -> AdamWState:
+    """Logical axes of the optimizer state: each moment takes its
+    parameter's axes (an int8 moment's payload the same; its per-row scale
+    drops the last axis), so the state is sharded wherever the parameter
+    is, with no cross-shard reshapes."""
+    from repro_torch.distributed.sharding import is_axes
+
+    def mom_axes(axes):
+        if cfg.int8_moments:
+            return Q8Leaf(q=axes, scale=axes[:-1] if len(axes) else axes)
+        return axes
+
+    leaves = tu.tree_map(mom_axes, param_axes_tree, is_leaf=is_axes)
+    return AdamWState(step=(), m=leaves, v=leaves)
+
+
 def init_state(params: Any, cfg: AdamWConfig) -> AdamWState:
     def zero_like(p):
         if cfg.int8_moments:

@@ -23,8 +23,12 @@ microbatch accumulation and before the compression, the clipping and the
 update — the order JAX's psum-then-compress gives. Every host then applies
 the same update to the same state.
 
-The sharding metadata (``grad_shardings``, ``train_state_axes``) is ROADMAP
-queue 1 item 9d.
+Sharding metadata: :func:`train_state_axes` gives the train state's
+logical axes (``repro_torch.distributed.sharding``); ``make_train_step``'s
+``grad_shardings`` takes the gradients' spec tree, checked against the
+parameters' structure. It changes no value, as JAX's
+``with_sharding_constraint`` on the gradients changes none: the port's
+step keeps every gradient whole on each device.
 """
 from __future__ import annotations
 
@@ -51,6 +55,31 @@ def init_train_state(params, ocfg: opt.AdamWConfig, *, grad_compress: bool = Fal
     )
 
 
+def train_state_axes(param_axes: Any, ocfg: opt.AdamWConfig, *, grad_compress: bool = False):
+    """The logical axes of :func:`init_train_state`'s state."""
+    return TrainState(
+        params=param_axes,
+        opt=opt.state_axes(param_axes, ocfg),
+        ef=opt.EFState(residual=param_axes) if grad_compress else None,
+    )
+
+
+def _check_grad_shardings(grad_shardings: Any) -> Callable:
+    """A check that ``grad_shardings`` (a tree of specs: tuples of mesh axis
+    names or None) has the parameters' structure, run on the first step."""
+    from repro_torch.distributed.sharding import is_spec
+
+    want = tu.flatten_with_paths(grad_shardings, is_leaf=is_spec)[0]
+
+    def check(params):
+        got = tu.flatten_with_paths(params)[0]
+        if got != want:
+            raise ValueError(f"grad_shardings does not have the parameters' structure: "
+                             f"{sorted(set(got) ^ set(want))[:4]} differ")
+
+    return check
+
+
 def _split_microbatches(batch: dict, n_mb: int) -> dict:
     def split(x):
         b = x.shape[0]
@@ -62,9 +91,10 @@ def _split_microbatches(batch: dict, n_mb: int) -> dict:
 
 def _autograd_views(params: dict, grads: dict, *, accumulate: bool) -> dict:
     """The params tree the loss sees: every leaf a detached view that
-    requires grad, the stacked ``layers`` as a list of per-layer trees.
-    Each view's gradient is copied (or, with ``accumulate``, added in f32)
-    into the matching view of ``grads`` when autograd produces it, and then
+    requires grad, the stacked ``layers`` (where the tree has them: the
+    dense, MoE, ssm and vlm families) as a list of per-layer trees. Each
+    view's gradient is copied (or, with ``accumulate``, added in f32) into
+    the matching view of ``grads`` when autograd produces it, and then
     dropped."""
 
     def view(p, g):
@@ -81,6 +111,8 @@ def _autograd_views(params: dict, grads: dict, *, accumulate: bool) -> dict:
         return v
 
     out = {k: tu.tree_map(view, params[k], grads[k]) for k in params if k != "layers"}
+    if "layers" not in params:
+        return out
     layers, g_layers = params["layers"], grads["layers"]
     n = tu.leaves(layers)[0].shape[0]
     out["layers"] = [tu.tree_map(lambda p, g: view(p[i], g[i]), layers, g_layers)
@@ -127,10 +159,12 @@ def make_train_step(
 
     ``ctx``: a :class:`repro_torch.distributed.runtime.DistributedContext`.
     Multi-controller: the gradients and the loss are averaged over the
-    hosts before the update, so every host steps the same state."""
-    if grad_shardings is not None:
-        raise NotImplementedError("grad_shardings: sharding metadata is not ported yet "
-                                  "(ROADMAP.md queue 1 item 9d)")
+    hosts before the update, so every host steps the same state.
+
+    ``grad_shardings``: the gradients' spec tree (``sharding.tree_specs``
+    of the parameters' axes), checked against the parameters' structure at
+    the first step; it changes no value."""
+    check_specs = None if grad_shardings is None else _check_grad_shardings(grad_shardings)
     if batch_sharding is not None:
         raise NotImplementedError("batch_sharding: a torch step takes no batch sharding; "
                                   "pass ctx= (a multi-controller DistributedContext) for "
@@ -138,25 +172,38 @@ def make_train_step(
     data_parallel = ctx is not None and ctx.is_multi_controller
 
     def train_step(state: TrainState, batch: dict):
+        nonlocal check_specs
+        if check_specs is not None:
+            check_specs(state.params)
+            check_specs = None
         loss, grads = loss_and_grads(loss_fn, state.params, batch, n_microbatch=n_microbatch)
-        if data_parallel:
-            loss = loss.reshape(1)
-            collectives.allreduce_mean_(tu.leaves(grads) + [loss], ctx)
-            loss = loss[0]
-        new_ef = None
-        if grad_compress and state.ef is not None:
-            pairs = tu.tree_map(opt.compress_decompress, grads, state.ef.residual)
-            is_pair = lambda x: type(x) is tuple  # noqa: E731
-            grads = tu.tree_map(lambda pr: pr[0], pairs, is_leaf=is_pair)
-            new_ef = opt.EFState(residual=tu.tree_map(lambda pr: pr[1], pairs, is_leaf=is_pair))
-        new_params, new_opt = opt.apply_updates(state.params, grads, state.opt, ocfg,
-                                                donate=True)
-        metrics = {
-            "loss": loss,
-            "grad_norm": opt.global_norm(grads),
-            "lr": opt.lr_schedule(ocfg, new_opt.step),
-            "step": new_opt.step.clone(),  # the state's own step is updated in place
-        }
-        return TrainState(params=new_params, opt=new_opt, ef=new_ef), metrics
+        return finish_step(state, loss, grads, ocfg, grad_compress=grad_compress,
+                           ctx=ctx if data_parallel else None)
 
     return train_step
+
+
+def finish_step(state: TrainState, loss, grads, ocfg: opt.AdamWConfig, *,
+                grad_compress: bool = False, ctx=None):
+    """The step after the gradients: the data-parallel average over the
+    hosts of ``ctx`` (None: one host), the error-feedback compression, the
+    clipped AdamW update written into ``state``, and the metrics. Returns
+    (new state, metrics)."""
+    if ctx is not None:
+        loss = loss.reshape(1)
+        collectives.allreduce_mean_(tu.leaves(grads) + [loss], ctx)
+        loss = loss[0]
+    new_ef = None
+    if grad_compress and state.ef is not None:
+        pairs = tu.tree_map(opt.compress_decompress, grads, state.ef.residual)
+        is_pair = lambda x: type(x) is tuple  # noqa: E731
+        grads = tu.tree_map(lambda pr: pr[0], pairs, is_leaf=is_pair)
+        new_ef = opt.EFState(residual=tu.tree_map(lambda pr: pr[1], pairs, is_leaf=is_pair))
+    new_params, new_opt = opt.apply_updates(state.params, grads, state.opt, ocfg, donate=True)
+    metrics = {
+        "loss": loss,
+        "grad_norm": opt.global_norm(grads),
+        "lr": opt.lr_schedule(ocfg, new_opt.step),
+        "step": new_opt.step.clone(),  # the state's own step is updated in place
+    }
+    return TrainState(params=new_params, opt=new_opt, ef=new_ef), metrics

@@ -925,6 +925,35 @@ backend.reset_launches()
 out["report"] = harness.evaluate_detector(det, n_images=16, ctx=ctx,
                                           sharded=se.ShardedEvalConfig(n_shards=4, batch=2))
 out["launches"] = dict(backend.launches)
+# the sharded operations over a (data 2, model 2) DeviceMesh of the four cards
+from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.tensor import distribute_tensor
+from repro_torch.distributed import embedding as de, kvops, sharding as shd
+mesh = init_device_mesh("cuda", (2, 2), mesh_dim_names=("data", "model"))
+gen = torch.Generator().manual_seed(0)
+table, tokens = torch.randn(32, 16, generator=gen), torch.randint(0, 32, (4, 8), generator=gen)
+tab = distribute_tensor(table.to(ctx.device), mesh,
+                        shd.to_placements(("model", "data"), mesh)).requires_grad_(True)
+tok = distribute_tensor(tokens.to(ctx.device), mesh, shd.to_placements(("data", None), mesh))
+with shd.use_rules(shd.default_rules(mesh, fsdp=True), mesh=mesh):
+    emb = de.embed_lookup(tok, tab)
+    (emb.to_local() ** 2).sum().backward()
+ref_t = table.clone().requires_grad_(True)
+(ref_t[tokens] ** 2).sum().backward()
+out["embed_equal"] = bool(torch.equal(emb.full_tensor().detach().cpu(), table[tokens]))
+out["embed_grad_err"] = float((tab.grad.full_tensor().cpu() - ref_t.grad).abs().max())
+out["embed_grad_local"] = list(tab.grad.to_local().shape)
+buf = distribute_tensor(torch.zeros(3, 2, 16, 2, 4, device=ctx.device), mesh,
+                        shd.to_placements((None, "data", "model", None, None), mesh))
+with shd.use_rules(shd.default_rules(mesh), mesh=mesh):
+    kvops.cache_write(buf, torch.full((2, 1, 2, 4), 7.0, device=ctx.device), 2, 13)
+want = torch.zeros(3, 2, 16, 2, 4)
+want[2, :, 13] = 7.0
+out["kv_equal"] = bool(torch.equal(buf.full_tensor().cpu(), want))
+xm, wm = torch.randn(8, 16, generator=gen), torch.randn(16, 12, generator=gen)
+ws = distribute_tensor(wm.to(ctx.device), mesh, shd.to_placements(("model", None), mesh))
+ym = C.overlap_allgather_matmul(mesh, "model")(xm.to(ctx.device), ws)
+out["mm_err"] = float((ym.cpu() - xm @ wm).abs().max())
 ctx.barrier("done")
 print("CHILD=" + json.dumps(out), flush=True)
 runtime.shutdown()
@@ -939,7 +968,9 @@ def test_four_cards_nccl_and_card_gather(cuda, tmp_path):
     gather, ``int8_psum``/``hierarchical_psum`` on a 2 × 2 grid at
     ``tests/test_distributed.py``'s bounds, the gradient mean) and a
     sharded detector evaluation through the fused kernel agree with one
-    process. Skips with fewer cards."""
+    process; the sharded embedding (its gradient sharded), ``cache_write``
+    and ``overlap_allgather_matmul`` over a (2, 2) DeviceMesh of the four
+    cards equal their plain versions. Skips with fewer cards."""
     import json
     import socket
     import subprocess
@@ -1003,3 +1034,69 @@ def test_four_cards_nccl_and_card_gather(cuda, tmp_path):
         assert o["int8_err"] <= o["int8_bound"] and o["hier_within_1e-5"]
         assert o["report"]["gather"] == "process" and se.reports_identical(o["report"], single)
         assert o["launches"][fp.KERNEL] > 0
+        # the sharded ops over NCCL: rows equal, the gradient in the table's
+        # layout (this card's 16 x 8 block), the cache row on its owner
+        assert o["embed_equal"] and o["embed_grad_err"] <= 1e-5
+        assert o["embed_grad_local"] == [16, 8]
+        assert o["kv_equal"] and o["mm_err"] <= 1e-4
+
+
+@pytest.mark.gpu
+def test_every_candidate_tile_bit_equal(cuda):
+    """Every candidate tile of every distinct fused layer shape of the
+    576x1024 detector (batch 1, seeded inputs) equals the shape rule's tile
+    and the plain version bit for bit, with the plan the library's plan
+    query gives; an illegal tile is refused before launch."""
+    from repro_torch import backend
+    from repro_torch.configs.snn_det import CONFIG
+    from repro_torch.kernels import autotune as at
+
+    seen = set()
+    for shape in at.detector_layer_shapes(CONFIG).values():
+        if shape.key in seen:
+            continue
+        seen.add(shape.key)
+        x, live, affine = at.synthetic_layer(shape, batch=1, device=cuda)
+        kw = dict(kout=shape.kout, kh=shape.kh, kw=shape.kw, bh=shape.bh, bw=shape.bw,
+                  t_out=shape.t_out, bn_scale=THR, threshold=THR, leak=LEAK)
+        want = fp.fused_pipeline_reference(x, live.w, live.taps, affine, None, **kw)
+        rule = at.layer_call(shape, x, live, affine, None, threshold=THR, leak=LEAK)()
+        for tile in at.candidates(shape):
+            got = at.layer_call(shape, x, live, affine, tile, threshold=THR, leak=LEAK)()
+            plan = fp.last_plan()
+            torch.cuda.synchronize()
+            for ref_ in (rule, want):
+                assert torch.equal(got[0], ref_[0]), (shape.key, tile)
+                assert torch.equal(got[1].view(torch.int32), ref_[1].view(torch.int32))
+            smem, _ = fp.tile_plan(tile, c=x.shape[-1], kp=live.w.shape[2],
+                                   n_live=len(live.taps), kh=shape.kh, bh=shape.bh, bw=shape.bw)
+            assert 0 < smem <= 227 * 1024
+            assert (plan["smem_bytes"], plan["steps_per_pass"]) == (smem, tile.tb)
+        if shape.t_in == 1:
+            before = backend.launches[fp.KERNEL]
+            with pytest.raises(ValueError, match="one conv"):
+                at.layer_call(shape, x, live, affine, (4, 2, 4, 2))()
+            assert backend.launches[fp.KERNEL] == before
+    # a 7x7 layer at C = 256 streams its packed weights: no named tile there
+    with pytest.raises(ValueError, match="stream"):
+        fp.check_tile((1, 2, 2, 4), t_in=3, c=256, kp=256, n_live=49, kh=7, bh=18, bw=32,
+                      packed=True, kblk=128)
+
+
+@pytest.mark.gpu
+def test_detector_shard_check_on_the_card(cuda):
+    """Column shards of whole blocks reproduce the whole fused forward bit
+    for bit (a block grid that every map divides); where a shard cuts a
+    block, the first such layer is reported."""
+    from repro_torch.benchmarks import detector_dryrun
+
+    for block, shards, first in (((6, 2), 2, None), ((6, 8), 4, "conv_block")):
+        cfg = dataclasses.replace(smoke_config(), conv_exec="pallas", block_hw=block)
+        params, bn, rng = demo_weights(cfg, seed=0, device=cuda)
+        h, w = cfg.input_hw
+        frames = torch.from_numpy((rng.integers(0, 256, (2, h, w, 3)) / 255.0)
+                                  .astype(np.float32)).to(cuda)
+        det = sy.compile_detector(cfg, params, bn, device=cuda)
+        out = detector_dryrun.shard_check(det, frames, shards)
+        assert out["first_differing_layer"] == first, out
+        assert out["head_bit_equal"] == (first is None)

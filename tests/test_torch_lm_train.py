@@ -538,9 +538,13 @@ def test_launcher_coordinator_raises():
 
 
 def test_make_train_step_refuses_sharding_metadata():
+    """``batch_sharding`` is refused (``ctx=`` is the data-parallel step);
+    ``grad_shardings`` is accepted and held to the parameters' structure at
+    the first step (its values: tests/test_torch_sharding.py)."""
     _, ocfg = _ocfg()
-    with pytest.raises(NotImplementedError, match="item 9d"):
-        trainer.make_train_step(None, ocfg, grad_shardings={})
+    step = trainer.make_train_step(None, ocfg, grad_shardings={})
+    with pytest.raises(ValueError, match="structure"):
+        step(trainer.TrainState(params={"w": torch.zeros(2)}, opt=None, ef=None), {})
     with pytest.raises(NotImplementedError, match="ctx="):
         trainer.make_train_step(None, ocfg, batch_sharding=object())
 

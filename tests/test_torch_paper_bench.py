@@ -178,13 +178,13 @@ def test_table2_short_train_on_jax_weights(monkeypatch):
 
 
 def test_runner_runs_jax_suites_in_jax_order():
-    """The suite list is JAX's ``benchmarks/run.py`` list without
-    ``roofline`` (TPU dry-run artifacts, ROADMAP item 9)."""
+    """The suite list is JAX's ``benchmarks/run.py`` list, ``roofline``
+    (the port's dry-run artifacts) included."""
     with open(os.path.join(ROOT, "benchmarks", "run.py")) as f:
         jax_names = re.findall(r'\(\s*"(\w+)",\s*lambda', f.read())
     assert "roofline" in jax_names
     names = [n for n, _ in run.suites(fast=True, device="cpu")]
-    assert names == [n for n in jax_names if n != "roofline"]
+    assert names == jax_names
 
 
 def test_runner_reports_failed_suites(monkeypatch, capsys, tmp_path):
