@@ -2176,14 +2176,22 @@ LM_TRAIN_PARITY_BATCH, LM_TRAIN_PARITY_SEQ = 8, 32
 # within 2·lr elsewhere
 LM_TRAIN_TOL = {"loss_rtol": 1e-5, "grad_norm_rtol": 1e-5, "grad_tol": 1e-5,
                 "state_rtol": 1e-6}
-# full width through launch.train.main; the train_4k global batch of 256 cut
-# to these, qwen at train_4k's sequence length, olmoe's cut from 4096 to 2048
+# the archs of phase m: card vs CPU at smoke_config, then full width through
+# launch.train.main; the train_4k global batch of 256 cut to these, olmoe's
+# sequence cut from 4096 to 2048; the moments are the dry-run's
+# TRAIN_PRESETS' (int8 for olmoe-1b-7b and zamba2-7b)
 LM_TRAIN = (
     ("qwen1.5-0.5b", ["--seq", "4096", "--batch", "8", "--microbatch", "4", "--steps", "20"],
      "train_4k global batch 256 -> 8 (2 per microbatch), 20 steps"),
     ("olmoe-1b-7b", ["--seq", "2048", "--batch", "4", "--microbatch", "2", "--steps", "12",
                      "--int8-moments"],
      "train_4k global batch 256 -> 4 (2 per microbatch), seq 4096 -> 2048, 12 steps"),
+    ("rwkv6-3b", ["--seq", "4096", "--batch", "4", "--microbatch", "2", "--steps", "8"],
+     "train_4k global batch 256 -> 4 (2 per microbatch), 8 steps"),
+    # two sequences a microbatch run out of the card's memory (PERF.md §6)
+    ("zamba2-7b", ["--seq", "4096", "--batch", "2", "--microbatch", "2", "--steps", "6",
+                   "--int8-moments"],
+     "train_4k global batch 256 -> 2 (1 per microbatch: 2 do not fit), 6 steps"),
 )
 LM_TRAIN_PROFILE_STEP = 2  # the step traced by torch.profiler (not in the event times)
 # the --ckpt run: qwen1.5-0.5b at full width, one invocation of LM_CKPT_STEPS[0]
@@ -2279,9 +2287,14 @@ def lm_train_run(dev, arch: str, argv: list, cuts: str, tag) -> dict:
     ms by CUDA events (the median after the first step), one step traced by
     ``torch.profiler`` (kernel time over that step's median time: the busy
     share; its launches), tokens/s, peak memory and the state's bytes by
-    part; for the MoE the entries dropped at capacity in the first layer's
-    dispatch of each step."""
+    part beside the dry-run's static bytes of the arch's train_4k cell
+    (parameters and optimizer state); what the peak holds beyond the
+    earlier phases' tensors, the state and the gradients is the step's
+    activations and temporaries. For the MoE, the entries dropped at
+    capacity in the first layer's dispatch of each step."""
     from repro_torch.benchmarks import serve_bench
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
     from repro_torch.launch import train as launch_train
     from repro_torch.models import moe
     from repro_torch.train import trainer
@@ -2344,6 +2357,9 @@ def lm_train_run(dev, arch: str, argv: list, cuts: str, tag) -> dict:
     losses = res["losses"]
     if not all(np.isfinite(losses)):
         raise AssertionError(f"{arch}: non-finite loss {losses}")
+    state_bytes = lm_state_bytes(res["state"], n_mb)
+    static = dryrun.static_bytes(get_config(arch), SHAPES["train_4k"], dryrun.MESHES["h100"])
+    beyond = peak - before - sum(state_bytes.values())
     out = {"arch": arch, "argv": argv, "cuts": cuts, "steps": len(losses),
            "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
            "step_ms_median": median, "step_ms": step_ms,
@@ -2355,7 +2371,9 @@ def lm_train_run(dev, arch: str, argv: list, cuts: str, tag) -> dict:
            "step_busy_share": None if trace is None else trace["total_ms"] / median,
            "step_top_kernels": None if trace is None else trace["kernels"][:8],
            "peak_memory_gib": peak / 2**30, "allocated_before_gib": before / 2**30,
-           "state_bytes": lm_state_bytes(res["state"], n_mb)}
+           "state_bytes": state_bytes, "dryrun_static_bytes": static,
+           "activations_gib": beyond / 2**30,
+           "activation_share_of_peak": beyond / max(peak - before, 1)}
     if dropped:
         out["dropped_layer0_per_step"] = [int(n) for n, _, _ in dropped]
         out["entries_layer0"], out["capacity"] = dropped[0][1], dropped[0][2]
@@ -2407,18 +2425,19 @@ def lm_train_resume(dev, tag) -> dict:
 
 
 def phase_lm_train(dev, tag) -> dict:
-    """(m) LM training on the card: one train step of qwen1.5-0.5b and
-    olmoe-1b-7b at their smoke configs on the card against the CPU; both at
-    full width through ``launch.train.main`` (bf16, remat); a ``--ckpt``
-    run resumed bit-equal. No hand-written kernel runs on this path: the
-    launch counts, set to 0 before the phase, must read 0 after it."""
+    """(m) LM training on the card: one train step of qwen1.5-0.5b,
+    olmoe-1b-7b, rwkv6-3b and zamba2-7b at their smoke configs on the card
+    against the CPU; each at full width through ``launch.train.main`` (bf16,
+    remat); a ``--ckpt`` run resumed bit-equal. No hand-written kernel runs
+    on this path: the launch counts, set to 0 before the phase, must read 0
+    after it."""
     from repro_torch import backend
     from repro_torch.models import snn_yolo as sy
 
     backend.reset_launches()
     out = {"card_vs_cpu": []}
     with sy._no_tf32():
-        for arch in ("qwen1.5-0.5b", "olmoe-1b-7b"):
+        for arch, _, _ in LM_TRAIN:
             for n_mb, compress, int8 in LM_TRAIN_PARITY:
                 row = lm_train_step_both(dev, arch, n_mb, compress, int8)
                 out["card_vs_cpu"].append(row)

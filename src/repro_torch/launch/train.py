@@ -1,6 +1,7 @@
-"""LM training launcher: ``--arch <id>`` picks the architecture (dense or
-MoE), the ``lm_data`` pipeline feeds it, and ``ft.Supervisor`` gives
-checkpoint/restart fault tolerance with ``--ckpt``. Counterpart of
+"""LM training launcher: ``--arch <id>`` picks the architecture (a family
+whose batch is tokens alone: dense, MoE, ssm or hybrid), the ``lm_data``
+pipeline feeds it, and ``ft.Supervisor`` gives checkpoint/restart fault
+tolerance with ``--ckpt``. Counterpart of
 ``repro/launch/train.py``: the same flags, the same step lines and the same
 final ``loss a -> b, N tok/s`` line. Without ``--full-config`` it trains
 the arch's smoke config.

@@ -17,7 +17,6 @@ from typing import NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch import tree as tu
 from repro_torch.configs.base import LMConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2
@@ -75,10 +74,6 @@ def init_cache(cfg: LMConfig, batch: int, max_seq: int, dtype=torch.bfloat16, *,
     )
 
 
-def _layer(stack: dict, *idx) -> dict:
-    return tu.tree_map(lambda a: a[idx], stack)
-
-
 def _state(st: Optional[mamba2.MambaState], *idx) -> Optional[mamba2.MambaState]:
     return None if st is None else mamba2.MambaState(h=st.h[idx], conv=st.conv[idx])
 
@@ -90,7 +85,7 @@ def _stack_states(states: list) -> mamba2.MambaState:
 
 def _super_out(x, params, cfg, i, positions):
     for j in range(cfg.attn_every):
-        x, _ = mamba2.mamba_forward(x, _layer(params["mamba"], i, j), cfg)
+        x, _ = mamba2.mamba_forward(x, tfm.layer_params(params["mamba"], i, j), cfg)
     return tfm.dense_block(x, params["shared_attn"], cfg, positions=positions)[0]
 
 
@@ -116,7 +111,7 @@ def forward(params, tokens, cfg: LMConfig, *, cache: Optional[HybridCache] = Non
             continue
         new_states = []
         for j in range(cfg.attn_every):
-            x, ns = mamba2.mamba_forward(x, _layer(params["mamba"], i, j), cfg,
+            x, ns = mamba2.mamba_forward(x, tfm.layer_params(params["mamba"], i, j), cfg,
                                          state=_state(mstate, i, j))
             new_states.append(ns)
         x, new_kv = tfm.dense_block(x, shared, cfg, positions=positions,
@@ -127,7 +122,7 @@ def forward(params, tokens, cfg: LMConfig, *, cache: Optional[HybridCache] = Non
 
     tail_states = []
     for j in range(n_tail):
-        x, ns = mamba2.mamba_forward(x, _layer(params["tail"], j), cfg,
+        x, ns = mamba2.mamba_forward(x, tfm.layer_params(params["tail"], j), cfg,
                                      state=_state(cache.tail if cache is not None else None, j))
         tail_states.append(ns)
 
@@ -161,7 +156,7 @@ def cached_decode(params, token, cfg: LMConfig, cache: HybridCache, pos):
 
     for i in range(n_super):
         for j in range(cfg.attn_every):
-            x, ns = mamba2.mamba_forward(x, _layer(params["mamba"], i, j), cfg,
+            x, ns = mamba2.mamba_forward(x, tfm.layer_params(params["mamba"], i, j), cfg,
                                          state=_state(cache.mamba, i, j))
             mh[i, j] = ns.h.to(mh.dtype)
             mconv[i, j] = ns.conv.to(mconv.dtype)
@@ -179,7 +174,7 @@ def cached_decode(params, token, cfg: LMConfig, cache: HybridCache, pos):
         x = x + L.mlp(L.rmsnorm(x, shared["ln2"], cfg.norm_eps), shared["mlp"])
 
     for j in range(n_tail):
-        x, ns = mamba2.mamba_forward(x, _layer(params["tail"], j), cfg,
+        x, ns = mamba2.mamba_forward(x, tfm.layer_params(params["tail"], j), cfg,
                                      state=_state(cache.tail, j))
         cache.tail.h[j] = ns.h.to(cache.tail.h.dtype)
         cache.tail.conv[j] = ns.conv.to(cache.tail.conv.dtype)

@@ -138,10 +138,12 @@ def _ssd_chunked(xh, dt, a_log, b_in, c_in, d_skip, h0, *, chunk: int = 128):
     u = torch.einsum("bnth,bnthd,bnts->bnhds", dtc * rdecay, xc, bc)
     chunk_decay = _exp_clip(s_last[:, :, 0, :], -60.0, 0.0)  # (B,nc,nh)
 
+    # unbind, not u[:, n]: the backward stacks the chunks' gradients once
+    # where indexing builds a zero gradient of the whole tensor per chunk
     h, h_prevs = h0, []
-    for n in range(nc):
+    for d_n, u_n in zip(chunk_decay.unbind(1), u.unbind(1)):
         h_prevs.append(h)
-        h = h * chunk_decay[:, n][:, :, None, None] + u[:, n]
+        h = h * d_n[:, :, None, None] + u_n
     h_prevs = torch.stack(h_prevs, dim=1)  # (B,nc,nh,hd,ds)
 
     # inter-chunk: y_t += C_t · e^{s_t} h_chunk_start

@@ -140,10 +140,12 @@ def _wkv_chunked(r, k, v, w, u, s0, *, chunk: int = 64):
     inj = torch.einsum("bnthd,bntho->bnhdo", kc * rdec, vc)  # (B,nc,H,hd,hd)
     cdec = _exp_clip(sw_last[:, :, 0], -60.0, 0.0)  # (B,nc,H,hd)
 
+    # unbind, not inj[:, n]: the backward stacks the chunks' gradients once
+    # where indexing builds a zero gradient of the whole tensor per chunk
     s, s_prevs = s0, []
-    for n in range(nc):
+    for c_n, inj_n in zip(cdec.unbind(1), inj.unbind(1)):
         s_prevs.append(s)
-        s = s * cdec[:, n][..., None] + inj[:, n]
+        s = s * c_n[..., None] + inj_n
     s_prevs = torch.stack(s_prevs, dim=1)  # (B,nc,H,hd,hd)
 
     # inter-chunk: the carried state decayed from the chunk start to t

@@ -69,12 +69,15 @@ def param_axes(cfg: LMConfig, layer_axes_fn=layer_axes) -> dict:
     return {"embed": L.embed_axes(cfg), "layers": stack_axes(layer_axes_fn(cfg), ("layers",))}
 
 
-def layer_params(layers, i: int) -> dict:
-    """Layer ``i``'s parameters: a view of row i of every stacked leaf, or
-    entry i of a list of per-layer trees."""
+def layer_params(layers, *idx: int) -> dict:
+    """Layer ``idx``'s parameters (one index per layer axis): a view of that
+    row of every stacked leaf, or the entry of nested lists of per-layer
+    trees (the train step's autograd views)."""
     if isinstance(layers, list):
-        return layers[i]
-    return tu.tree_map(lambda a: a[i], layers)
+        for i in idx:
+            layers = layers[i]
+        return layers
+    return tu.tree_map(lambda a: a[idx], layers)
 
 
 def init_stacked(gen: torch.Generator, cfg: LMConfig, layer_init_fn, lead: tuple) -> dict:

@@ -5,11 +5,12 @@ and AdamW. Counterpart of ``repro/train/trainer.py`` on one device.
 Gradients are computed as JAX's ``value_and_grad`` gives them: in each
 parameter's dtype with one microbatch (bf16 at the full configs), summed in
 f32 over ``n_microbatch`` microbatches and divided by their count, as the
-JAX package's scan does. The loss sees every stacked (L, ...) leaf as L
-per-layer autograd leaves (views of the parameters), and each gradient is
-added into its row of the stacked gradient as soon as autograd has it, so
-no full-size gradient of a stacked leaf is built per layer and the
-accumulation holds one gradient tree at a time.
+JAX package's scan does. The loss sees every stacked leaf (the layers of
+each family, the hybrid's mamba stacks) as one autograd leaf per layer
+(views of the parameters), and each gradient is added into its row of the
+stacked gradient as soon as autograd has it, so no full-size gradient of a
+stacked leaf is built per layer and the accumulation holds one gradient
+tree at a time.
 
 The step gives up its input state: the new parameters and moments are
 written into its tensors, as the JAX launcher's jitted step donates its
@@ -89,13 +90,19 @@ def _split_microbatches(batch: dict, n_mb: int) -> dict:
     return tu.tree_map(split, batch)
 
 
+# the stacked subtrees of the params trees, by top-level key, and the number
+# of leading layer axes of each: the dense, MoE, ssm and vlm families'
+# ``layers`` (L, ...), the hybrid's ``mamba`` (n_super, attn_every, ...) and
+# its ``tail`` (n_tail, ...)
+STACKED = {"layers": 1, "mamba": 2, "tail": 1}
+
+
 def _autograd_views(params: dict, grads: dict, *, accumulate: bool) -> dict:
     """The params tree the loss sees: every leaf a detached view that
-    requires grad, the stacked ``layers`` (where the tree has them: the
-    dense, MoE, ssm and vlm families) as a list of per-layer trees. Each
-    view's gradient is copied (or, with ``accumulate``, added in f32) into
-    the matching view of ``grads`` when autograd produces it, and then
-    dropped."""
+    requires grad, each subtree of :data:`STACKED` as nested lists of
+    per-layer trees (one level per layer axis). Each view's gradient is
+    copied (or, with ``accumulate``, added in f32) into the matching view of
+    ``grads`` when autograd produces it, and then dropped."""
 
     def view(p, g):
         v = p.detach().requires_grad_(True)
@@ -110,14 +117,14 @@ def _autograd_views(params: dict, grads: dict, *, accumulate: bool) -> dict:
         v.register_post_accumulate_grad_hook(land)
         return v
 
-    out = {k: tu.tree_map(view, params[k], grads[k]) for k in params if k != "layers"}
-    if "layers" not in params:
-        return out
-    layers, g_layers = params["layers"], grads["layers"]
-    n = tu.leaves(layers)[0].shape[0]
-    out["layers"] = [tu.tree_map(lambda p, g: view(p[i], g[i]), layers, g_layers)
-                     for i in range(n)]
-    return out
+    def per_layer(p, g, lead: int):
+        if not lead:
+            return tu.tree_map(view, p, g)
+        n = tu.leaves(p)[0].shape[0]
+        return [per_layer(tu.tree_map(lambda a: a[i], p), tu.tree_map(lambda a: a[i], g),
+                          lead - 1) for i in range(n)]
+
+    return {k: per_layer(params[k], grads[k], STACKED.get(k, 0)) for k in params}
 
 
 def loss_and_grads(loss_fn: Callable, params: dict, batch: dict, *, n_microbatch: int = 1):
