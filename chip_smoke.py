@@ -167,7 +167,7 @@ m. One ``make_train_step`` step of qwen1.5-0.5b and olmoe-1b-7b at
    loss, gradient norm, gradients and new parameters within
    ``tests/test_torch_lm_train.py``'s bounds. Then ``launch.train.main`` at
    full width in bf16 with remat: qwen1.5-0.5b at seq 4096, batch 8 in 4
-   microbatches, 20 steps; olmoe-1b-7b at seq 2048, batch 4 in 2
+   microbatches, 6 steps; olmoe-1b-7b at seq 2048, batch 4 in 2
    microbatches, int8 moments (each run's cuts on its line): the step time
    by CUDA events (median after the first step), tokens/s, peak memory and
    the state's bytes by part, one step's kernel time and launches by
@@ -249,6 +249,28 @@ q. ``launch.dryrun`` for every ``h100`` cell of qwen1.5-0.5b, olmoe-1b-7b,
    check on the card (4 column shards of 8 input block columns): every
    layer before the first whose map a shard cuts inside a block bit-equal
    to the whole forward's columns, and that layer the one reported.
+
+The developer entry points (``repro_torch.launch.quickstart``,
+``mixed_timestep_search``, ``serve_lm``, ``make_ann_fixture``;
+``repro_torch.benchmarks.check_crossover``), each as a user calls it:
+
+r. The quickstart at 144x256 on the card: its step 5 is one gated launch
+   on a (1, 18, 32, 256) spike tile, bit-equal to the plain version (and
+   timed beside it and its bound); every figure it prints equal to its
+   CPU run on the same seeded weights (the f32 spike rates and mIoUT,
+   means reduced in another order, within 1e-6). The mixed-time-step search
+   at 144x256 and 576x1024: schedule and GOps equal on the card and the
+   CPU. ``serve_burst`` for qwen1.5-0.5b, olmoe-1b-7b, rwkv6-3b and
+   zamba2-7b at their smoke configs (12 requests, 4 slots; CPU weights
+   moved to the card): 12 streams equal on the card and the CPU, tokens/s.
+   ``make_ann_fixture`` on the card (120 of its 4000 steps, 8 val
+   images): the loss falls (mean of the last 20 steps below the first
+   20's), ms a step, no kernel launched; its bundle converted by
+   ``launch.convert --conv-exec pallas --eval-images 8`` in a subprocess:
+   exit 0, 17 fused launches per ``detect()``. ``check_crossover`` on phase
+   g's 576x1024 result must hold (and its CLI exit 0); at 96x128 (the JAX
+   package's gate file's size) the ratio is printed as a reading. The
+   search and the LM bursts launch no kernel.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error and times.
@@ -2181,13 +2203,13 @@ LM_TRAIN_TOL = {"loss_rtol": 1e-5, "grad_norm_rtol": 1e-5, "grad_tol": 1e-5,
 # sequence cut from 4096 to 2048; the moments are the dry-run's
 # TRAIN_PRESETS' (int8 for olmoe-1b-7b and zamba2-7b)
 LM_TRAIN = (
-    ("qwen1.5-0.5b", ["--seq", "4096", "--batch", "8", "--microbatch", "4", "--steps", "20"],
-     "train_4k global batch 256 -> 8 (2 per microbatch), 20 steps"),
-    ("olmoe-1b-7b", ["--seq", "2048", "--batch", "4", "--microbatch", "2", "--steps", "12",
+    ("qwen1.5-0.5b", ["--seq", "4096", "--batch", "8", "--microbatch", "4", "--steps", "6"],
+     "train_4k global batch 256 -> 8 (2 per microbatch), 6 steps"),
+    ("olmoe-1b-7b", ["--seq", "2048", "--batch", "4", "--microbatch", "2", "--steps", "6",
                      "--int8-moments"],
-     "train_4k global batch 256 -> 4 (2 per microbatch), seq 4096 -> 2048, 12 steps"),
-    ("rwkv6-3b", ["--seq", "4096", "--batch", "4", "--microbatch", "2", "--steps", "8"],
-     "train_4k global batch 256 -> 4 (2 per microbatch), 8 steps"),
+     "train_4k global batch 256 -> 4 (2 per microbatch), seq 4096 -> 2048, 6 steps"),
+    ("rwkv6-3b", ["--seq", "4096", "--batch", "4", "--microbatch", "2", "--steps", "6"],
+     "train_4k global batch 256 -> 4 (2 per microbatch), 6 steps"),
     # two sequences a microbatch run out of the card's memory (PERF.md §6)
     ("zamba2-7b", ["--seq", "4096", "--batch", "2", "--microbatch", "2", "--steps", "6",
                    "--int8-moments"],
@@ -3271,6 +3293,228 @@ def phase_dryrun(dev, det, frames, lm, lm_train, families, tag) -> dict:
     return out
 
 
+# phase r: the developer entry points (launch.quickstart, mixed_timestep_search,
+# serve_lm, make_ann_fixture; benchmarks.check_crossover) on the card
+EXAMPLE_TRAIN_STEPS = 120  # make_ann_fixture's 4000 steps, cut to the time limit
+EXAMPLE_EVAL_IMAGES = 8  # the trained ANN's val images (48 by default), and the convert CLI's
+CROSSOVER_SMALL_HW, CROSSOVER_SMALL_REPS = (96, 128), 20  # the JAX gate's file: a reading only
+# the quickstart's figures that must be equal on the card and the CPU; its f32
+# means (spike rates, mIoUT) reduce in another order there: within EXAMPLE_F32_TOL
+QUICKSTART_KEYS = ("param_count", "head_shape", "spike_count", "stage4/main_a", "in_t",
+                   "kernel", "detections", "score_threshold", "session_counts")
+EXAMPLE_F32_TOL = 1e-6
+
+_CONVERT_CHILD = r"""
+import json, sys
+from repro_torch import backend
+from repro_torch.launch import convert
+from repro_torch.serve import detector as sd
+
+real, per = sd.CompiledDetector.detect, []
+def detect(self, frames):
+    before = backend.launches["fused_pipeline"]
+    out = real(self, frames)
+    per.append([self.cfg.conv_exec, backend.launches["fused_pipeline"] - before])
+    return out
+sd.CompiledDetector.detect = detect
+r = convert.main(sys.argv[1:])
+print(json.dumps({"detects": per, "map": r["report"]["map"]}))
+"""
+
+
+def gated_recorder(g2a):
+    """(stand-in, captured): a stand-in for ``g2a.gated_one_to_all`` that calls
+    it and keeps each launch's inputs, for the check against the plain version."""
+    real = g2a.gated_one_to_all
+    captured = []
+
+    def record(*args, **kwargs):
+        captured.append((args, kwargs))
+        return real(*args, **kwargs)
+
+    return record, captured
+
+
+def phase_examples(dev, e2e_full, tag) -> dict:
+    """(r) the developer entry points, each driven as a user calls it: the
+    quickstart (its gated launch held to the plain version, every figure
+    equal on the CPU), the mixed-time-step search at 144x256 and 576x1024
+    (card ≡ CPU), the LM burst of the four families (streams card ≡ CPU),
+    the ANN trainer on the card and its bundle converted and served by the
+    convert CLI, and the crossover gate on phase g's full-width result."""
+    import tempfile
+
+    from repro_torch import backend
+    from repro_torch import tree as tu
+    from repro_torch.benchmarks import check_crossover, e2e_detector
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.kernels import gated_one_to_all as g2a
+    from repro_torch.launch import make_ann_fixture, quickstart, serve_lm
+    from repro_torch.launch import mixed_timestep_search as search
+    from repro_torch.models import zoo
+
+    out = {}
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {**os.environ, "PYTHONPATH": os.path.join(here, "src")}
+
+    # ---------------------------------------------------- 1. the quickstart
+    t0 = time.perf_counter()
+    real_gated = g2a.gated_one_to_all
+    record, captured = gated_recorder(g2a)
+    g2a.gated_one_to_all = record
+    try:
+        backend.reset_launches()
+        card = quickstart.run(device=dev)
+        torch.cuda.synchronize()
+        launches = dict(backend.launches)
+    finally:
+        g2a.gated_one_to_all = real_gated
+    card_s = time.perf_counter() - t0
+    if launches != {g2a.KERNEL: 1} or card["kernel_launches"] != 1 or len(captured) != 1:
+        raise AssertionError(f"quickstart launched {launches}; want one gated launch")
+    (x, maskp, vals, tap_any), kw = captured[0]
+    y = g2a.gated_one_to_all(x, maskp, vals, tap_any, **kw)
+    want = g2a.gated_one_to_all_reference(x, maskp, vals, tap_any, **kw)
+    torch.cuda.synchronize()
+    if not bits_equal(y, want):
+        raise AssertionError(f"quickstart's gated launch != plain version: max |Δ| "
+                             f"{int((y - want).abs().max())}")
+    ms, _ = device_ms(lambda: g2a.gated_one_to_all(x, maskp, vals, tap_any, **kw))
+    plain_ms = elapsed_ms(lambda: g2a.gated_one_to_all_reference(x, maskp, vals, tap_any,
+                                                                 **kw), reps=5)
+    bound, bound_by = gated_bound(x, (maskp, vals, tap_any), kw["kout"],
+                                  card["kernel"]["taps_executed"])
+    t0 = time.perf_counter()
+    cpu = quickstart.run(device="cpu")
+    cpu_s = time.perf_counter() - t0
+    differ = [k for k in QUICKSTART_KEYS if card[k] != cpu[k]]
+    f32_diff = max(abs(card[k][n] - cpu[k][n]) for k in ("spike_rate", "miout") for n in card[k])
+    if differ or f32_diff > EXAMPLE_F32_TOL:
+        raise AssertionError(f"quickstart card != CPU in {differ} (f32 means within "
+                             f"{f32_diff}): {[(card[k], cpu[k]) for k in differ]}")
+    out["quickstart"] = {"launches": launches[g2a.KERNEL], "max_abs_err": 0.0,
+                         "tile": list(x.shape), "kout": kw["kout"], "ms": ms,
+                         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                         "card_s": card_s, "cpu_s": cpu_s,
+                         "figures_equal_cpu": True, "f32_max_abs_diff_cpu": f32_diff,
+                         **{k: card[k] for k in (*QUICKSTART_KEYS, "spike_rate", "miout")
+                            if k != "head_shape"}}
+    print(json.dumps({"phase": "example_quickstart", **out["quickstart"], **tag}), flush=True)
+
+    # ------------------------------------- 2. the mixed-time-step search
+    backend.reset_launches()
+    out["search"] = {}
+    for full in (False, True):
+        cfg = search.search_config(full_config=full)
+        t0 = time.perf_counter()
+        got = search.run(cfg, device=dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref_ = search.run(cfg, device="cpu")
+        cpu_s = time.perf_counter() - t0
+        for k in ("schedule", "base_gops", "proposed_gops"):
+            if got[k] != ref_[k]:
+                raise AssertionError(f"search at {cfg.input_hw}: card {k} {got[k]} != CPU "
+                                     f"{ref_[k]}")
+        dm = max(abs(v - ref_["miout"][n]) for n, v in got["miout"].items() if v is not None)
+        if dm > EXAMPLE_F32_TOL:
+            raise AssertionError(f"search at {cfg.input_hw}: mIoUT card vs CPU {dm}")
+        row = {"input_hw": list(cfg.input_hw), "schedule": got["schedule"],
+               "miout": got["miout"], "miout_max_abs_diff_cpu": dm,
+               "base_gops": got["base_gops"], "proposed_gops": got["proposed_gops"],
+               "card_s": card_s, "cpu_s": cpu_s}
+        out["search"]["x".join(map(str, cfg.input_hw))] = row
+        print(json.dumps({"phase": "example_search", **row, **tag}), flush=True)
+
+    # --------------------------------------------------- 3. the LM burst
+    out["serve_lm"] = {}
+    for arch in serve_lm.ARCHS:
+        cpu_params = zoo.get_api(smoke_config(get_config(arch))).init_params(SEED, device="cpu")
+        card_params = tu.tree_map(lambda t: t.to(dev), cpu_params)
+        runs = {name: serve_lm.serve_burst(arch, params=p, device=d)
+                for name, p, d in (("cpu", cpu_params, "cpu"), ("card", card_params, dev))}
+        streams = {name: {r.rid: [int(t) for t in r.out] for r in run["done"]}
+                   for name, run in runs.items()}
+        if streams["card"] != streams["cpu"] or len(streams["card"]) != 12:
+            raise AssertionError(f"{arch}: card streams != CPU streams")
+        row = {"arch": arch, "requests": 12, "slots": 4, "new_tokens": runs["card"]["new_tokens"],
+               "tokens_per_s": runs["card"]["tokens_per_s"], "seconds": runs["card"]["seconds"],
+               "cpu_tokens_per_s": runs["cpu"]["tokens_per_s"], "streams_equal_cpu": True}
+        out["serve_lm"][arch] = row
+        print(json.dumps({"phase": "example_serve_lm", **row, **tag}), flush=True)
+        del runs, cpu_params, card_params
+    lm_launches = sum(backend.launches.values())
+    if lm_launches:
+        raise AssertionError(f"the search and the LM bursts launched {dict(backend.launches)}")
+
+    # ------------------- 4. the ANN trainer; its bundle through the convert CLI
+    root = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    npz = os.path.join(root, "ann_tiny_yolo.npz")
+    backend.reset_launches()
+    r = make_ann_fixture.run(steps=EXAMPLE_TRAIN_STEPS, eval_images=EXAMPLE_EVAL_IMAGES,
+                             out=npz, device=dev, verbose=False)
+    losses = r["losses"]
+    first, last = statistics.mean(losses[:20]), statistics.mean(losses[-20:])
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"make_ann_fixture: loss did not fall ({first} -> {last})")
+    train_launches = sum(backend.launches.values())
+    if train_launches:
+        raise AssertionError(f"ANN training launched {dict(backend.launches)}")
+    train = {"kernel_launches": train_launches, "steps": EXAMPLE_TRAIN_STEPS, "batch": 6,
+             "ms_per_step": r["ms_per_step"], "train_s": r["train_s"],
+             "loss_first": losses[0], "loss_last": losses[-1], "loss_first20_mean": first,
+             "loss_last20_mean": last, "map": r["map"], "eval_images": r["n_images"],
+             "bytes": r["bytes"]}
+    print(json.dumps({"phase": "example_make_ann_fixture", **train, **tag}), flush=True)
+    t0 = time.perf_counter()
+    argv = ["--npz", npz, "--out", os.path.join(root, "converted"), "--conv-exec", "pallas",
+            "--eval-images", str(EXAMPLE_EVAL_IMAGES)]
+    proc = subprocess.run([sys.executable, "-c", _CONVERT_CHILD, *argv], env=env, cwd=here,
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"convert of the card-trained ANN exited {proc.returncode}: "
+                             f"{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    child = json.loads(proc.stdout.strip().splitlines()[-1])
+    per = [n for ex, n in child["detects"] if ex == "pallas"]
+    if not per or any(n != 17 for n in per):
+        raise AssertionError(f"convert CLI: fused launches per detect() {child['detects']}; "
+                             "want 17")
+    convert = {"rc": 0, "seconds": time.perf_counter() - t0, "detects": len(per),
+               "fused_launches": sum(per), "fused_launches_per_detect": 17,
+               "converted_map": child["map"], "eval_images": EXAMPLE_EVAL_IMAGES}
+    print(json.dumps({"phase": "example_convert_cli", **convert, **tag}), flush=True)
+    out["ann"] = {"train": train, "convert": convert}
+
+    # ------------------------------------------------- 5. the crossover gate
+    ok, msg = check_crossover.check(e2e_full, tolerance=0.05, min_seconds=0.001)
+    if not ok:
+        raise AssertionError(f"crossover gate at 576x1024: {msg}")
+    path = os.path.join(root, "BENCH_torch_e2e.json")
+    with open(path, "w") as f:
+        json.dump(e2e_full, f)
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.benchmarks.check_crossover",
+                           "--file", path], env=env, cwd=here, capture_output=True, text=True,
+                          timeout=120)
+    shutil.rmtree(root)
+    if proc.returncode != 0:
+        raise AssertionError(f"check_crossover CLI exited {proc.returncode}: {proc.stdout}")
+    small = e2e_detector.run(e2e_detector.reduced_config(CROSSOVER_SMALL_HW), batch=1,
+                             device=dev, reps=CROSSOVER_SMALL_REPS)
+    small_ok, small_msg = check_crossover.check(small, tolerance=0.05, min_seconds=0.001)
+    walls = lambda d: {ex: r["wall_s"] * 1e3 for ex, r in d["executors"].items()}  # noqa: E731
+    out["crossover"] = {
+        "full": {"input_hw": [576, 1024], "ok": ok, "message": msg, "wall_ms": walls(e2e_full),
+                 "ratio": e2e_full["executors"]["pallas"]["wall_s"]
+                 / e2e_full["executors"]["dense"]["wall_s"], "cli": proc.stdout.strip()},
+        "small": {"input_hw": list(CROSSOVER_SMALL_HW), "reading_only": True,
+                  "would_pass": small_ok, "message": small_msg, "wall_ms": walls(small),
+                  "reps": CROSSOVER_SMALL_REPS, "ratio": small["executors"]["pallas"]["wall_s"]
+                  / small["executors"]["dense"]["wall_s"]}}
+    print(json.dumps({"phase": "example_crossover", **out["crossover"], **tag}), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — needs a CUDA card",
@@ -3556,6 +3800,13 @@ def main() -> int:
     dry = phase_dryrun(dev, det, frames, lm, lm_train, families, tag)
     print(json.dumps({"phase": "elapsed", "after": "q", "s": time.perf_counter() - t_start}),
           flush=True)
+
+    # ------------------------------------------ r. the developer entry points
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples = phase_examples(dev, benches["e2e"], tag)
+    print(json.dumps({"phase": "elapsed", "after": "r", "s": time.perf_counter() - t_start}),
+          flush=True)
     sharded_launches = multi["sharded_eval"]["launches"]
     train_launches = trained["train"]["kernel_launches"]
     bl, el = benches["bench_launches"], benches["e2e_launches"]
@@ -3628,6 +3879,15 @@ def main() -> int:
             sharded_launches.get(fp.KERNEL, 0) / multi["sharded_eval"]["detects"],
         "sharded_eval_per": f"both processes of the sharded evaluation ({SHARD_IMAGES} images, "
                             f"{SHARD_SHARDS} shards, 576x1024), their timed run",
+        "launches_example_convert_cli": examples["ann"]["convert"]["fused_launches"],
+        "launches_example_convert_cli_per_detect":
+            examples["ann"]["convert"]["fused_launches_per_detect"],
+        "example_convert_cli_per": "launch.convert --conv-exec pallas in a subprocess on the "
+                                   f"ANN make_ann_fixture trained on the card "
+                                   f"({EXAMPLE_TRAIN_STEPS} steps), {EXAMPLE_EVAL_IMAGES} val "
+                                   "images",
+        "launches_example_train": examples["ann"]["train"]["kernel_launches"],
+        "crossover_576x1024": examples["crossover"]["full"]["message"],
     }, {
         "name": "gated_one_to_all",
         "route": "cuda",
@@ -3662,6 +3922,13 @@ def main() -> int:
         "launches_lm_training": lm_train["kernel_launches"],
         "launches_lm_families": families["kernel_launches"],
         "launches_sharded_eval": sharded_launches.get("gated_one_to_all", 0),
+        "launches_quickstart": examples["quickstart"]["launches"],
+        "quickstart_ms": examples["quickstart"]["ms"],
+        "quickstart_plain_ms": examples["quickstart"]["plain_ms"],
+        "quickstart_bound_ms": examples["quickstart"]["bound_ms"],
+        "quickstart_per": f"launch.quickstart's step 5: one launch on "
+                          f"{tuple(examples['quickstart']['tile'])} spikes, stage4/main_a's "
+                          "pruned int8 weights",
     }, {
         "name": "fused_lif",
         "route": "cuda",

@@ -21,6 +21,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import block_conv as bc
 from repro_torch.core import lif
 from repro_torch.kernels import bitmask_matmul as bmm
 from repro_torch.kernels import fused_pipeline as fp
@@ -268,15 +269,17 @@ def gated_conv(
     x: torch.Tensor,  # (N, H, W, C) uint8 spikes {0,1} or u8 pixels
     pw: PackedConvWeights,
     *,
-    bh: int,
-    bw: int,
+    bh: int = bc.BLOCK_H,
+    bw: int = bc.BLOCK_W,
     weights: PackedTensors | None = None,
 ) -> torch.Tensor:
     """Sparse-compressed block convolution, NHWC → NHWK int32, in one
     launch of the gated one-to-all kernel on the packed weights (decoded
     inside it). The leading axis is a plain batch: callers fold time steps
-    into it. ``weights``: the layer's packed arrays on x's device (a plan
-    holds them); copied from ``pw`` here when not given. Channels are
+    into it. ``bh``/``bw``: the block, the paper's 18×32 PE-array tile by
+    default (the JAX package's ``g2a.BLOCK_H``/``BLOCK_W``). ``weights``:
+    the layer's packed arrays on x's device (a plan holds them); copied from
+    ``pw`` here when not given. Channels are
     zero-padded up to ``pw.cin`` (zero inputs times zero weights: exact).
     The encode layer passes its u8 pixel values — the exact fold of its 8
     bit-serial planes."""
