@@ -272,6 +272,22 @@ r. The quickstart at 144x256 on the card: its step 5 is one gated launch
    package's gate file's size) the ratio is printed as a reading. The
    search and the LM bursts launch no kernel.
 
+Sharded training state (``repro_torch.distributed.fsdp``):
+
+s. qwen1.5-32b at full width (d_model 5120, 40 heads, d_ff 27392, vocab
+   152064, bf16, remat), 2 of its 64 layers, through the launcher's own
+   training function (``launch.train.train``, the config its ``fsdp``
+   keeps): two processes sharing the card over gloo, each holding its
+   slices of every ``embed``-axis leaf, seq 1024, global batch 2, int8
+   moments, 3 steps; then the same run replicated in this process. Per
+   process: state bytes by part beside the whole state's (at most 0.52 of
+   the one-process state), peak memory (the init's and the steps'), each
+   step's ms (CUDA events), the gathers' and reduce-scatters' bytes each
+   step and their host ms in the last step (timed with the card
+   synchronised around each). The two loss series equal within rtol
+   2e-4, atol 1e-5, and each step's gradient norm in both processes that
+   of the one process within rtol 1e-2; no kernel launched.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error and times.
 """
@@ -2647,15 +2663,20 @@ def run_children(argvs: list, *, cwd=None) -> list:
     return outs
 
 
-def train_children(argv: list, n: int) -> list:
-    """``launch.train`` as ``n`` processes of one job (``n`` = 1: one
-    process, no coordinator) through ``_TRAIN_CHILD``."""
+def train_argvs(argv: list, n: int) -> list:
+    """The ``python`` argvs of ``launch.train`` as ``n`` processes of one
+    job (``n`` = 1: one process, no coordinator) through ``_TRAIN_CHILD``."""
     if n == 1:
-        return run_children([["-c", _TRAIN_CHILD, json.dumps({"argv": argv})]])
+        return [["-c", _TRAIN_CHILD, json.dumps({"argv": argv})]]
     addr = f"127.0.0.1:{free_port()}"
-    return run_children([["-c", _TRAIN_CHILD, json.dumps({"argv": argv + [
+    return [["-c", _TRAIN_CHILD, json.dumps({"argv": argv + [
         "--coordinator", addr, "--num-processes", str(n), "--process-id", str(pid)]})]
-        for pid in range(n)])
+        for pid in range(n)]
+
+
+def train_children(argv: list, n: int) -> list:
+    """:func:`train_argvs` run (:func:`run_children`)."""
+    return run_children(train_argvs(argv, n))
 
 
 def train_row(tag_: str, runs: list, n_procs: int) -> dict:
@@ -2736,31 +2757,41 @@ def phase_multiprocess(dev, tag, fused_kernel: str) -> dict:
         print(json.dumps({"phase": "sharded_eval_single", "seconds": single_s,
                           "images": SHARD_IMAGES, "map": single["map"], **tag}), flush=True)
 
-        # n2. the CLIs' shard gates, one process each
-        for name, argv in (
-            ("serve_eval_shards", ["-m", "repro_torch.launch.serve", "--arch", "snn-det",
-                                   "--eval-map", "--eval-shards", "2", "--checkpoint",
-                                   det_ckpt, "--requests", "8"]),
-            ("eval_map_shards", ["-m", "repro_torch.benchmarks.eval_map", "--checkpoint",
-                                 det_ckpt, "--shards", "2", "--out-json", ""]),
-        ):
-            t0 = time.perf_counter()
-            r = subprocess.run([sys.executable, *argv], cwd=root, capture_output=True,
-                               text=True, timeout=CHILD_TIMEOUT_S, env={
-                                   **os.environ, "PYTHONPATH": os.path.join(
-                                       os.path.dirname(os.path.abspath(__file__)), "src")})
-            lines = [ln for ln in r.stdout.splitlines()
-                     if "parity" in ln or "shards" in ln or "mAP" in ln]
-            out[name] = {"rc": r.returncode, "seconds": time.perf_counter() - t0,
-                         "lines": lines}
-            print(json.dumps({"phase": name, **out[name], **tag}), flush=True)
-            if r.returncode != 0 or not any("BIT-IDENTICAL" in ln for ln in lines):
-                raise AssertionError(f"{name} exited {r.returncode} without its parity line: "
-                                     f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+        # n2. the CLIs' shard gates, one process each, both at once (each one's
+        # seconds run from the common start to when its output is read)
+        env = {**os.environ, "PYTHONPATH": os.path.join(
+            os.path.dirname(os.path.abspath(__file__)), "src")}
+        t0 = time.perf_counter()
+        clis = [(name, subprocess.Popen([sys.executable, *argv], cwd=root, env=env, text=True,
+                                        stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+                for name, argv in (
+                    ("serve_eval_shards", ["-m", "repro_torch.launch.serve", "--arch", "snn-det",
+                                           "--eval-map", "--eval-shards", "2", "--checkpoint",
+                                           det_ckpt, "--requests", "8"]),
+                    ("eval_map_shards", ["-m", "repro_torch.benchmarks.eval_map",
+                                         "--checkpoint", det_ckpt, "--shards", "2",
+                                         "--out-json", ""]))]
+        try:
+            for name, proc in clis:
+                stdout, stderr = proc.communicate(timeout=CHILD_TIMEOUT_S)
+                lines = [ln for ln in stdout.splitlines()
+                         if "parity" in ln or "shards" in ln or "mAP" in ln]
+                out[name] = {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+                             "lines": lines}
+                print(json.dumps({"phase": name, **out[name], **tag}), flush=True)
+                if proc.returncode != 0 or not any("BIT-IDENTICAL" in ln for ln in lines):
+                    raise AssertionError(f"{name} exited {proc.returncode} without its parity "
+                                         f"line: {stdout[-3000:]}{stderr[-3000:]}")
+        finally:
+            for _, proc in clis:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
 
-        # n3. data-parallel LM training: the smoke trajectory, then full width
-        smoke2 = train_children(DP_SMOKE, 2)
-        smoke1 = train_children(DP_SMOKE, 1)
+        # n3. data-parallel LM training: the smoke trajectory (two processes and
+        # one, all three at once), then full width
+        runs = run_children(train_argvs(DP_SMOKE, 2) + train_argvs(DP_SMOKE, 1))
+        smoke2, smoke1 = runs[:2], runs[2:]
         a, b = np.asarray(smoke2[0]["losses"]), np.asarray(smoke1[0]["losses"])
         smoke = {"losses_two": a.tolist(), "losses_one": b.tolist(),
                  "max_rel_diff": float(np.max(np.abs(a - b) / np.abs(b))),
@@ -2813,6 +2844,180 @@ def phase_multiprocess(dev, tag, fused_kernel: str) -> dict:
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
+
+# ------------------------------------------------- s. sharded training state
+
+# 2 of its 64 layers: at 4 the script reached 1199 s of its 1200 s limit on
+# the slowest machine seen (phase s 89 s there)
+FSDP_ARCH, FSDP_LAYERS = "qwen1.5-32b", 2
+FSDP_ARGV = ["--arch", FSDP_ARCH, "--full-config", "--seq", "1024", "--batch", "2",
+             "--int8-moments", "--steps", "3"]
+FSDP_TIMED_STEP = 2  # the step whose gathers and reduce-scatters are timed
+FSDP_STATE_SHARE = 0.52
+FSDP_LOSS_RTOL, FSDP_LOSS_ATOL = 2e-4, 1e-5
+# each step's gradient norm, two processes against one: bf16 gradients of
+# batch 1 summed against those of batch 2 round apart by a bf16 ulp
+# (2^-8) of some elements; a lost mean (x2 on the split leaves) or a layer's
+# gradient counted twice under the remat moves the norm by far more
+FSDP_GNORM_RTOL = 1e-2
+
+def fsdp_train_run(a: dict) -> dict:
+    """One run of phase s: the launcher's training function at the cut
+    depth (``a``: its ``argv`` and ``layers``), each step timed by CUDA
+    events with fsdp's counters read after it (the collectives' host ms in
+    step ``timed_step``). A process of the two-process job runs it in a
+    child (``_FSDP_CHILD``), the one-process reference in this process:
+    peaks are counted beyond what the process held before, and the
+    hand-written kernels' launches from a count set to 0 at its start."""
+    from repro_torch import backend
+    from repro_torch import tree as tu
+    from repro_torch.backend import resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import fsdp, runtime
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train import trainer
+
+    args = launch_train.parse_args(a["argv"])
+    cfg = dataclasses.replace(get_config(args.arch), n_layers=a["layers"])
+    steps, peaks = [], {}
+    real_make = trainer.make_train_step
+
+    def make(*args_, **kw):
+        step = real_make(*args_, **kw)
+
+        def timed(state, batch):
+            if not steps:  # the init is over
+                torch.cuda.synchronize()
+                peaks["init"] = torch.cuda.max_memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            fsdp.TIMED = len(steps) == a["timed_step"]
+            fsdp.reset_stats()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = step(state, batch)
+            e1.record()
+            torch.cuda.synchronize()
+            steps.append({"ms": e0.elapsed_time(e1), "timed_collectives": fsdp.TIMED,
+                          **fsdp.STATS})
+            fsdp.TIMED = False
+            return out
+
+        return timed
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    backend.reset_launches()
+    trainer.make_train_step = make
+    try:
+        if args.coordinator:
+            ctx = runtime.initialize(coordinator_address=args.coordinator,
+                                     num_processes=args.num_processes,
+                                     process_id=args.process_id, device=args.device)
+            dev = ctx.device
+        else:
+            ctx, dev = runtime.get_context(), resolve_device(args.device)
+        res = launch_train.train(args, ctx, dev, cfg=cfg)
+        torch.cuda.synchronize()
+        specs = res["specs"]
+        out = {"host": ctx.host_id, "n": ctx.n_hosts, "backend": ctx.backend,
+               "device": str(dev), "losses": res["losses"], "grad_norms": res["grad_norms"],
+               "steps": steps, "state_bytes": res["state_bytes"],
+               "split_leaves": 0 if specs is None else sum(s.split for s in tu.leaves(specs)),
+               "seconds": res["seconds"], "tok_per_s": res["tok_per_s"],
+               "peak_init_gib": (peaks["init"] - before) / 2**30,
+               "peak_steps_gib": (torch.cuda.max_memory_allocated() - before) / 2**30,
+               "kernel_launches": sum(backend.launches.values())}
+    finally:
+        trainer.make_train_step = real_make
+        fsdp.TIMED = False
+        if args.coordinator:
+            runtime.shutdown()
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# a process of phase s's two-process job: argv[1] the run, argv[2] the
+# directory of this script
+_FSDP_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[2])
+import chip_smoke
+print("CHILD=" + json.dumps(chip_smoke.fsdp_train_run(json.loads(sys.argv[1]))), flush=True)
+"""
+
+
+def phase_fsdp(dev, tag) -> dict:
+    """(s) The sharded state on the card: two processes against one."""
+    def total(b):
+        return b["params"] + b["grads"] + b["moments"]
+
+    addr = f"127.0.0.1:{free_port()}"
+    job = {"layers": FSDP_LAYERS, "timed_step": FSDP_TIMED_STEP}
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    two = run_children([["-c", _FSDP_CHILD, json.dumps({**job, "argv": FSDP_ARGV + [
+        "--coordinator", addr, "--num-processes", "2", "--process-id", str(pid)]}), here]
+        for pid in range(2)])
+    two_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = fsdp_train_run({**job, "argv": FSDP_ARGV})  # in this process
+    one_s = time.perf_counter() - t0
+    whole = total(one["state_bytes"])
+    rows = []
+    for k in two + [one]:
+        row = {"host": k["host"], "processes": k["n"], "backend": k["backend"],
+               "device": k["device"], "split_leaves": k["split_leaves"],
+               "state_bytes": k["state_bytes"],
+               "state_share_of_one_process": total(k["state_bytes"]) / whole,
+               "peak_init_gib": k["peak_init_gib"], "peak_steps_gib": k["peak_steps_gib"],
+               "step_ms": [st["ms"] for st in k["steps"]],
+               "gather_bytes": [st["gather_bytes"] for st in k["steps"]],
+               "reduce_scatter_bytes": [st["reduce_scatter_bytes"] for st in k["steps"]],
+               "gather_calls": [st["gather_calls"] for st in k["steps"]],
+               "reduce_scatter_calls": [st["reduce_scatter_calls"] for st in k["steps"]],
+               "timed_step": FSDP_TIMED_STEP,
+               "gather_ms": k["steps"][FSDP_TIMED_STEP]["gather_ms"],
+               "reduce_scatter_ms": k["steps"][FSDP_TIMED_STEP]["reduce_scatter_ms"],
+               "losses": k["losses"], "grad_norms": k["grad_norms"],
+               "tok_per_s": k["tok_per_s"],
+               "kernel_launches": k["kernel_launches"]}
+        rows.append(row)
+        print(json.dumps({"phase": "fsdp_train", "arch": FSDP_ARCH, "layers": FSDP_LAYERS,
+                          "argv": FSDP_ARGV, **row, **tag}), flush=True)
+    a, b = np.asarray(two[0]["losses"]), np.asarray(one["losses"])
+    ga, gb = (np.asarray([k["grad_norms"] for k in two]), np.asarray(one["grad_norms"]))
+    compare = {"losses_two": a.tolist(), "losses_one": b.tolist(),
+               "max_rel_diff": float(np.max(np.abs(a - b) / np.abs(b))),
+               "within_bound": bool(len(a) == len(b) and np.all(
+                   np.abs(a - b) <= FSDP_LOSS_ATOL + FSDP_LOSS_RTOL * np.abs(b))),
+               "grad_norms_two": ga.tolist(), "grad_norms_one": gb.tolist(),
+               "grad_norm_max_rel_diff": float(np.max(np.abs(ga - gb) / np.abs(gb))),
+               "grad_norms_within_bound": bool(ga.shape == (2, len(gb)) and np.all(
+                   np.abs(ga - gb) <= FSDP_GNORM_RTOL * np.abs(gb))),
+               "two_process_s": two_s, "one_process_s": one_s}
+    print(json.dumps({"phase": "fsdp_compare", **compare, **tag}), flush=True)
+    for r in rows[:2]:
+        if not (r["backend"] == "gloo" and r["split_leaves"] > 0
+                and r["state_share_of_one_process"] <= FSDP_STATE_SHARE
+                and all(g > 0 for g in r["gather_bytes"])
+                and all(x > 0 for x in r["reduce_scatter_bytes"])):
+            raise AssertionError(f"process {r['host']} of the sharded run: {r}")
+    if rows[2]["split_leaves"] or rows[2]["gather_bytes"][0]:
+        raise AssertionError(f"the one-process reference is not replicated: {rows[2]}")
+    if not (all(np.isfinite(a)) and all(np.isfinite(b)) and compare["within_bound"]):
+        raise AssertionError(f"sharded losses off the one-process ones: {compare}")
+    if not (np.all(np.isfinite(ga)) and np.all(np.isfinite(gb))
+            and compare["grad_norms_within_bound"]):
+        raise AssertionError(f"sharded gradient norms off the one-process ones: {compare}")
+    launches = sum(r["kernel_launches"] for r in rows)
+    if launches:
+        raise AssertionError(f"{launches} kernel launches in LM training")
+    return {"rows": rows, "compare": compare, "kernel_launches": launches}
+
 
 # --------------------------------------------------- o. the other LM families
 
@@ -3807,6 +4012,13 @@ def main() -> int:
     examples = phase_examples(dev, benches["e2e"], tag)
     print(json.dumps({"phase": "elapsed", "after": "r", "s": time.perf_counter() - t_start}),
           flush=True)
+
+    # ------------------------------------------------ s. sharded training state
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = phase_fsdp(dev, tag)
+    print(json.dumps({"phase": "elapsed", "after": "s", "s": time.perf_counter() - t_start}),
+          flush=True)
     sharded_launches = multi["sharded_eval"]["launches"]
     train_launches = trained["train"]["kernel_launches"]
     bl, el = benches["bench_launches"], benches["e2e_launches"]
@@ -3856,6 +4068,7 @@ def main() -> int:
         "launches_lm_serving": lm["kernel_launches"],
         "launches_lm_training": lm_train["kernel_launches"],
         "launches_lm_families": families["kernel_launches"],
+        "launches_fsdp_training": sharded["kernel_launches"],
         "launches_pipeline_per_detect": pipeline["fused_launches_per_detect"],
         "pipeline_uniform_t3_ms": pipeline["uniform_t3_kernel_ms"],
         "pipeline_uniform_t3_plain_ms": pipeline["uniform_t3_plain_ms"],
@@ -3921,6 +4134,7 @@ def main() -> int:
         "launches_lm_serving": lm["kernel_launches"],
         "launches_lm_training": lm_train["kernel_launches"],
         "launches_lm_families": families["kernel_launches"],
+        "launches_fsdp_training": sharded["kernel_launches"],
         "launches_sharded_eval": sharded_launches.get("gated_one_to_all", 0),
         "launches_quickstart": examples["quickstart"]["launches"],
         "quickstart_ms": examples["quickstart"]["ms"],
@@ -3952,6 +4166,7 @@ def main() -> int:
         "launches_lm_serving": lm["kernel_launches"],
         "launches_lm_training": lm_train["kernel_launches"],
         "launches_lm_families": families["kernel_launches"],
+        "launches_fsdp_training": sharded["kernel_launches"],
         "launches_sharded_eval": sharded_launches.get("spike_lif", 0),
     }, {
         "name": "bitmask_matmul",
@@ -3979,6 +4194,7 @@ def main() -> int:
         "launches_lm_serving": lm["kernel_launches"],
         "launches_lm_training": lm_train["kernel_launches"],
         "launches_lm_families": families["kernel_launches"],
+        "launches_fsdp_training": sharded["kernel_launches"],
         "launches_sharded_eval": sharded_launches.get("bitmask_matmul", 0),
     }]
     print(json.dumps({"kernels": kernels}))

@@ -5,10 +5,13 @@ written for one package reads the same in the other.
 
 ``param_dtype`` is a ``torch.dtype``. ``remat`` is read by the training
 forward (each layer's block recomputed in the backward,
-``torch.utils.checkpoint``; numbers unchanged). ``scan_layers`` and
-``fsdp`` are XLA compile and sharding choices; the port keeps them as data
-(its layers are always stacked (L, ...), as a scanned JAX model's are, so
-parameters cross between the packages leaf for leaf) and reads neither.
+``torch.utils.checkpoint``; numbers unchanged). ``fsdp`` is read by the
+training launcher: a multi-process launch of such a config keeps each
+process's slices of every ``embed``-axis leaf of the train state
+(``repro_torch.distributed.fsdp``), as JAX's launcher shards it over its
+data devices. ``scan_layers`` is an XLA compile choice; the port keeps it
+as data (its layers are always stacked (L, ...), as a scanned JAX model's
+are, so parameters cross between the packages leaf for leaf).
 """
 from __future__ import annotations
 

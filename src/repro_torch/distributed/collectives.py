@@ -17,11 +17,16 @@
 * :func:`hierarchical_psum` — reduce-scatter within a pod, all-reduce the
   partials across pods, all-gather within the pod.
 
-Under the gloo backend, tensors on a card are staged through the host
-(``_to_wire`` / copy back); under NCCL they travel from the card. gloo in
-the torch versions this runs on implements every op and dtype used here
-(``all_gather``, ``all_reduce``, ``all_to_all_single`` on bool, uint8,
-int8, int32, float32, bfloat16).
+The wire: under the gloo backend, tensors on a card are staged through
+pinned host buffers (``_to_wire`` / ``_empty_wire``, copy back), which the
+copies cross at the bus's rate where pageable memory takes a CPU copy;
+under NCCL they travel from the card. A large transfer over every host
+(``_pieces``) is cut into pieces of :data:`PIECE_BYTES` spread over
+:data:`GLOO_GROUPS` groups of the same processes, all in flight at once
+(one TCP stream each); under NCCL it is one call. gloo in the torch
+versions this runs on implements every op and dtype used here
+(``all_gather``, ``all_reduce``, ``reduce_scatter``, ``all_to_all_single``
+on bool, uint8, int8, int32, float32, bfloat16).
 
 * :func:`overlap_allgather_matmul` — ``x @ w`` with ``w`` row-sharded over
   a mesh axis: a ring of ``batch_isend_irecv`` transfers, each in flight
@@ -29,20 +34,83 @@ int8, int32, float32, bfloat16).
 """
 from __future__ import annotations
 
+import datetime
 from typing import Sequence
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.distributed import runtime
+
 # elements per flat buffer of allreduce_mean_: 256 MB of f32 a call
 FLAT_ELEMS = 1 << 26
+# under gloo a transfer larger than PIECE_BYTES is cut into pieces spread
+# over GLOO_GROUPS groups of the same processes
+PIECE_BYTES = 32 << 20
+GLOO_GROUPS = 8
+_GROUPS: dict = {}
+
+
+def _empty_wire(shape, dtype, ctx, on_card: bool) -> torch.Tensor:
+    """A buffer a collective fills: on this process's card under NCCL;
+    under gloo on the host, pinned when the data comes from a card
+    (``on_card``)."""
+    if ctx.backend == "nccl":
+        return torch.empty(shape, dtype=dtype, device=ctx.device)
+    return torch.empty(shape, dtype=dtype, pin_memory=on_card)
 
 
 def _to_wire(t: torch.Tensor, ctx) -> torch.Tensor:
-    """The tensor a collective sends: on the host under gloo, on this
-    process's card under NCCL."""
-    return t.to(ctx.device) if ctx.backend == "nccl" else t.cpu()
+    """The tensor a collective sends: on this process's card under NCCL;
+    under gloo a host tensor as it is, a card's copied into a pinned host
+    buffer (:func:`_empty_wire`)."""
+    if ctx.backend == "nccl":
+        return t.to(ctx.device)
+    if not t.is_cuda:
+        return t
+    w = _empty_wire(t.shape, t.dtype, ctx, True)
+    w.copy_(t)
+    return w
+
+
+def _groups(ctx) -> list:
+    """The groups a transfer over every host is spread over: the default
+    group and ``GLOO_GROUPS - 1`` more of the same processes, made at the
+    first transfer that needs them (every process reaches it in the same
+    order, since every process makes the same collectives)."""
+    world = dist.group.WORLD
+    if _GROUPS.get("world") is not world:
+        timeout = datetime.timedelta(seconds=runtime.TIMEOUT_S)
+        _GROUPS.update(world=world, groups=[None] + [
+            dist.new_group(list(range(ctx.n_hosts)), timeout=timeout)
+            for _ in range(GLOO_GROUPS - 1)])
+    return _GROUPS["groups"]
+
+
+def _pieces(numel: int, elsize: int, ctx) -> list:
+    """([start, stop) element ranges, group) pairs of one transfer over
+    every host: one piece under NCCL or when it fits :data:`PIECE_BYTES`,
+    else pieces of that size over :func:`_groups`."""
+    if ctx.backend != "gloo" or numel * elsize <= PIECE_BYTES:
+        return [((0, numel), None)]
+    groups, step = _groups(ctx), max(1, PIECE_BYTES // elsize)
+    return [((a, min(a + step, numel)), groups[i % len(groups)])
+            for i, a in enumerate(range(0, numel, step))]
+
+
+def _wait(works: list) -> None:
+    for wk in works:
+        wk.wait()
+
+
+def _all_reduce_(w: torch.Tensor, ctx, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``w`` (a contiguous wire tensor) reduced over every host in place,
+    piece by piece (:func:`_pieces`), all pieces in flight at once."""
+    flat = w.view(-1)
+    _wait([dist.all_reduce(flat[a:b], op=op, group=g, async_op=True)
+           for (a, b), g in _pieces(flat.numel(), flat.element_size(), ctx)])
+    return w
 
 
 def _all_gather_rows(t: torch.Tensor, ctx, group=None) -> torch.Tensor:
@@ -108,8 +176,7 @@ def allreduce_mean_(tensors: Sequence[torch.Tensor], ctx) -> int:
 
         def flush():
             nonlocal pending, fill, sent
-            wire = _to_wire(buf[:fill], ctx)
-            dist.all_reduce(wire, op=dist.ReduceOp.SUM)
+            wire = _all_reduce_(_to_wire(buf[:fill], ctx), ctx)
             wire.div_(ctx.n_hosts)
             sent += wire.numel() * wire.element_size()
             out = wire.to(dev)

@@ -23,30 +23,43 @@ card, NCCL where each has its own; ``--device cpu``: gloo on the CPU). Only
 host 0 prints and writes ``--losses-out``; with ``--ckpt`` the checkpoints
 are striped over the hosts and each writes ``hb_host{i}.json``.
 
+Sharded state: where the arch's config sets ``fsdp`` (qwen1.5-32b,
+qwen1.5-110b, llama3-405b), a multi-process launch builds
+``sharding.default_rules(mesh, fsdp=True)`` on a (data = processes, model
+= 1) mesh, as JAX's launcher does, and each process keeps only its slices
+of every leaf with an ``embed`` axis (``repro_torch.distributed.fsdp``):
+drawn a layer at a time and sliced (the whole tree is never held),
+stepped, saved whole (the leaves gathered) and resumed slice by slice from
+a checkpoint written by any number of processes. Each process prints its
+state's bytes by part beside the whole state's. The smoke config keeps
+the arch's ``fsdp``: sharding is the deployment's choice, not a width.
+
 Runs on the card unless ``--device cpu``; exits non-zero when the loss did
 not decrease.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
 
 import torch
 
+from repro_torch import tree as tu
 from repro_torch.backend import resolve_device
 from repro_torch.configs import ARCH_IDS, get_config, smoke_config
 from repro_torch.data import lm_data
-from repro_torch.distributed import runtime
+from repro_torch.distributed import fsdp, runtime
+from repro_torch.distributed import sharding as shd
 from repro_torch.models import zoo
 from repro_torch.train import ft
 from repro_torch.train import optimizer as opt
 from repro_torch.train import trainer
 
 
-def main(argv=None) -> dict:
-    """Returns {"losses", "state", "steps_run", "seconds", "tok_per_s"}."""
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=list(ARCH_IDS), required=True)
     ap.add_argument("--steps", type=int, default=50)
@@ -65,37 +78,83 @@ def main(argv=None) -> dict:
     ap.add_argument("--losses-out", default=None,
                     help="host 0 writes the per-step loss series here (json)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None) -> dict:
+    """Returns :func:`train`'s dict; exits non-zero when the loss did not
+    decrease."""
+    args = parse_args(argv)
     if args.coordinator:
         ctx = runtime.initialize(coordinator_address=args.coordinator,
                                  num_processes=args.num_processes,
                                  process_id=args.process_id, device=args.device)
         try:
-            return _train(args, ctx, ctx.device)
+            res = train(args, ctx, ctx.device)
         finally:
             runtime.shutdown()
-    return _train(args, runtime.get_context(), resolve_device(args.device))
+    else:
+        res = train(args, runtime.get_context(), resolve_device(args.device))
+    if res["losses"][-1] >= res["losses"][0]:
+        raise SystemExit("loss did not decrease")
+    return res
 
 
-def _train(args, ctx, dev) -> dict:
+def launch_config(args):
+    """The arch's config, or its smoke config with the arch's ``fsdp``."""
+    cfg = get_config(args.arch)
+    if args.full_config:
+        return cfg
+    return dataclasses.replace(smoke_config(cfg), fsdp=cfg.fsdp)
+
+
+def state_bytes(state, specs, n_microbatch: int) -> dict:
+    """This process's train state by part (the gradients: the step's, of
+    the params' shapes, f32 under microbatching), and under ``"whole"`` the
+    same parts made whole (``specs`` None: the state is whole)."""
+    if specs is None:
+        specs = tu.tree_map(lambda _: fsdp.WHOLE, state)
+    grad_size = (lambda t: 4) if n_microbatch > 1 else (lambda t: t.element_size())
+
+    def parts(numel):
+        def total(tree, sp, size=lambda t: t.element_size()):
+            return sum(numel(t, s) * size(t) for t, s in zip(tu.leaves(tree), tu.leaves(sp)))
+
+        return {"params": total(state.params, specs.params),
+                "grads": total(state.params, specs.params, grad_size),
+                "moments": total((state.opt.m, state.opt.v), (specs.opt.m, specs.opt.v))}
+
+    return {**parts(lambda t, s: t.numel()), "whole": parts(fsdp.whole_numel)}
+
+
+def train(args, ctx, dev, cfg=None) -> dict:
+    """The launcher's run on ``ctx``'s process (``cfg``: the launcher's
+    config unless given). Returns {"losses", "grad_norms", "state",
+    "specs", "steps_run", "seconds", "tok_per_s", "state_bytes"}; ``specs``
+    is the state's layout (None when it is whole)."""
     if args.batch % ctx.n_hosts != 0:
         raise SystemExit(f"--batch {args.batch} is the GLOBAL batch and must divide over "
                          f"{ctx.n_hosts} hosts")
     local_batch = args.batch // ctx.n_hosts
     lead = ctx.host_id == 0
 
-    cfg = get_config(args.arch)
-    if not args.full_config:
-        cfg = smoke_config(cfg)
+    cfg = cfg or launch_config(args)
     api = zoo.get_api(cfg)
     ocfg = opt.AdamWConfig(total_steps=args.steps, warmup_steps=max(args.steps // 10, 1),
                            int8_moments=args.int8_moments)
-    step_fn = trainer.make_train_step(api.loss_fn, ocfg, n_microbatch=args.microbatch, ctx=ctx)
+    specs = None
+    if cfg.fsdp and ctx.is_multi_controller:
+        rules = shd.default_rules(fsdp.mesh_for(ctx), fsdp=True)
+        specs = trainer.state_specs(api.param_axes(), api.init_params(0, device="meta"), ocfg,
+                                    rules, ctx)
+    step_fn = trainer.make_train_step(api.loss_fn, ocfg, n_microbatch=args.microbatch, ctx=ctx,
+                                      specs=specs)
 
     def init_state():
-        return trainer.init_train_state(api.init_params(0, device=dev), ocfg)
+        params = api.init_params(0, device=dev, specs=None if specs is None else specs.params)
+        return trainer.init_train_state(params, ocfg, specs=specs)
 
-    losses, ran = [], []  # the loss and index of each step this invocation ran
+    losses, gnorms, ran = [], [], []  # loss, gradient norm, index of each step run here
 
     def run_step(state, t):
         local = lm_data.batch_at(t, batch_size=local_batch, seq_len=args.seq,
@@ -104,10 +163,11 @@ def _train(args, ctx, dev) -> dict:
         batch = {k: torch.from_numpy(v).to(dev) for k, v in local.items()}
         state, m = step_fn(state, batch)
         losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
         ran.append(t)
         if lead and t % 10 == 0:
             print(f"step {t:5d} loss {losses[-1]:.4f} lr {float(m['lr']):.2e} "
-                  f"gnorm {float(m['grad_norm']):.3f}", flush=True)
+                  f"gnorm {gnorms[-1]:.3f}", flush=True)
         return state
 
     t0 = time.time()
@@ -116,7 +176,7 @@ def _train(args, ctx, dev) -> dict:
         sup = ft.Supervisor(ckpt_root=args.ckpt, save_every=20,
                             heartbeat=ft.Heartbeat(os.path.join(args.ckpt, hb)), ctx=ctx)
         state = sup.run(init_state=init_state, state_template=init_state, step_fn=run_step,
-                        n_steps=args.steps)
+                        n_steps=args.steps, specs=specs)
     else:
         state = init_state()
         for t in range(args.steps):
@@ -125,16 +185,22 @@ def _train(args, ctx, dev) -> dict:
     if not losses:
         raise SystemExit(f"{args.ckpt} already holds step {args.steps - 1}: nothing to run")
     toks = len(losses) * args.batch * args.seq
+    sizes = state_bytes(state, specs, args.microbatch)
+    if specs is not None:
+        local, whole = (sum(v for k, v in d.items() if k != "whole")
+                        for d in (sizes, sizes["whole"]))
+        print(f"host {ctx.host_id}/{ctx.n_hosts}: state {local} of {whole} bytes whole "
+              f"({local / whole:.3f}): " + ", ".join(
+                  f"{k} {sizes[k]} of {sizes['whole'][k]}" for k in ("params", "grads",
+                                                                     "moments")), flush=True)
     if lead:
         print(f"{args.arch}: {len(losses)} steps, loss {losses[0]:.3f} -> {losses[-1]:.3f}, "
               f"{toks / dt:.0f} tok/s", flush=True)
     if args.losses_out and lead:
         with open(args.losses_out, "w") as f:
             json.dump(losses, f)
-    if losses[-1] >= losses[0]:
-        raise SystemExit("loss did not decrease")
-    return {"losses": losses, "state": state, "steps_run": ran, "seconds": dt,
-            "tok_per_s": toks / dt}
+    return {"losses": losses, "grad_norms": gnorms, "state": state, "specs": specs,
+            "steps_run": ran, "seconds": dt, "tok_per_s": toks / dt, "state_bytes": sizes}
 
 
 if __name__ == "__main__":

@@ -31,6 +31,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree as tu
 from repro_torch.configs.base import LMConfig
+from repro_torch.distributed import fsdp
 from repro_torch.distributed import sharding as shd
 from repro_torch.models import layers as L
 
@@ -80,15 +81,21 @@ def layer_params(layers, *idx: int) -> dict:
     return tu.tree_map(lambda a: a[idx], layers)
 
 
-def init_stacked(gen: torch.Generator, cfg: LMConfig, layer_init_fn, lead: tuple) -> dict:
+def init_stacked(gen: torch.Generator, cfg: LMConfig, layer_init_fn, lead: tuple,
+                 specs=None) -> dict:
     """``prod(lead)`` layers drawn one at a time into stacked (*lead, ...)
-    leaves: the peak is the stack plus one layer."""
+    leaves: the peak is the stack plus one layer. ``specs``: the stacked
+    leaves' layout over the processes (``fsdp.Shard``); each layer is
+    drawn whole and only this process's slice of it kept."""
     n = 1
     for d in lead:
         n *= d
+    inner = None if specs is None else tu.tree_map(lambda s: s.inner(len(lead)), specs)
     stacked = None
     for i in range(n):
         layer = layer_init_fn(gen, cfg)
+        if inner is not None:
+            layer = fsdp.shard_tree(layer, inner)
         if stacked is None:
             stacked = tu.tree_map(lambda a: a.new_empty(tuple(lead) + tuple(a.shape)), layer)
         for dst, src in zip(tu.leaves(stacked), tu.leaves(layer)):
@@ -97,11 +104,18 @@ def init_stacked(gen: torch.Generator, cfg: LMConfig, layer_init_fn, lead: tuple
     return stacked
 
 
-def init_params(gen: torch.Generator, cfg: LMConfig, layer_init_fn=layer_init) -> dict:
+def init_params(gen: torch.Generator, cfg: LMConfig, layer_init_fn=layer_init,
+                specs=None) -> dict:
     """Seeded parameters on ``gen``'s device: the embeddings, then the
-    layers drawn one at a time into their stacked (L, ...) leaves."""
+    layers drawn one at a time into their stacked (L, ...) leaves.
+    ``specs``: the params' layout over the processes (``fsdp.Shard``):
+    only this process's slices are kept, the same draws made, so the
+    whole tree is never held."""
     embed = L.embed_init(gen, cfg)
-    return {"embed": embed, "layers": init_stacked(gen, cfg, layer_init_fn, (cfg.n_layers,))}
+    if specs is not None:
+        embed = fsdp.shard_tree(embed, specs["embed"])
+    return {"embed": embed, "layers": init_stacked(gen, cfg, layer_init_fn, (cfg.n_layers,),
+                                                   None if specs is None else specs["layers"])}
 
 
 # ----------------------------------------------------------------- forward --

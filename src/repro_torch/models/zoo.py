@@ -39,7 +39,7 @@ from repro_torch.models import whisper
 
 class ModelAPI(NamedTuple):
     cfg: LMConfig
-    init_params: Callable  # (seed, device=None) -> params
+    init_params: Callable  # (seed, device=None, specs=None) -> params (specs: this process's slices)
     loss_fn: Callable  # (params, batch) -> loss
     prefill_fn: Callable
     decode_fn: Callable
@@ -55,14 +55,16 @@ class _MetaGen(NamedTuple):
 
 
 def _seeded(init_fn, cfg: LMConfig) -> Callable:
-    """``init_params(seed, device=None)`` over ``init_fn(gen, cfg)``;
-    ``device="meta"`` gives the tree's shapes and dtypes without memory
-    (JAX's ``eval_shape`` of ``init_params``)."""
+    """``init_params(seed, device=None, specs=None)`` over ``init_fn(gen,
+    cfg)``; ``device="meta"`` gives the tree's shapes and dtypes without
+    memory (JAX's ``eval_shape`` of ``init_params``). ``specs`` (the
+    params' layout, ``fsdp.Shard`` per leaf; the dense and MoE families'
+    ``init_fn`` take it): this process's slices, drawn a layer at a time."""
 
-    def init_params(seed: int = 0, *, device=None):
+    def init_params(seed: int = 0, *, device=None, specs=None):
         dev = resolve_device(device)
         gen = _MetaGen() if dev.type == "meta" else torch.Generator(device=dev).manual_seed(seed)
-        return init_fn(gen, cfg)
+        return init_fn(gen, cfg) if specs is None else init_fn(gen, cfg, specs=specs)
 
     return init_params
 
@@ -106,7 +108,7 @@ def _dense_api(cfg: LMConfig, block_fn=tfm.dense_block, layer_init=tfm.layer_ini
 
     return ModelAPI(
         cfg=cfg,
-        init_params=_seeded(lambda gen, c: tfm.init_params(gen, c, layer_init), cfg),
+        init_params=_seeded(lambda gen, c, **kw: tfm.init_params(gen, c, layer_init, **kw), cfg),
         loss_fn=tfm.make_loss_fn(cfg, block_fn),
         prefill_fn=prefill,
         decode_fn=decode,

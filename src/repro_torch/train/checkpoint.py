@@ -29,6 +29,13 @@ a ``step_*`` directory (not ``.tmp``) that holds its manifest.
   whole (a data-parallel state is the same on every host), so a striped
   checkpoint restores through :func:`restore` in one process, and in the
   JAX package's, like any other.
+* Sharded state (``save(..., specs=)``, ``distributed/fsdp.py``): every
+  host gathers each split leaf (a collective per leaf, in leaf order) and
+  its owner writes it whole, as JAX's ``_full_host_array`` replicates a
+  sharded leaf before writing, so the layout stays the one above.
+  ``restore(..., specs=)`` reads only this process's slice of each split
+  leaf (the file memory-mapped), so a checkpoint written by any number of
+  processes resumes at any other — JAX's ``restore(shardings=)``.
 """
 from __future__ import annotations
 
@@ -45,7 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch import tree as tu
-from repro_torch.distributed import runtime
+from repro_torch.distributed import fsdp, runtime
 
 _RESERVED_FILES = ("manifest.json", "shard_manifest.json", "staging.json")
 
@@ -84,7 +91,7 @@ def _leaf_meta(leaf) -> tuple[list, str]:
 
 
 def save(root: str, step: int, tree: Any, *,
-         extra_files: Optional[Mapping[str, bytes]] = None, ctx=None) -> str:
+         extra_files: Optional[Mapping[str, bytes]] = None, ctx=None, specs=None) -> str:
     """Synchronous atomic save. Returns the committed directory.
 
     ``extra_files``: {filename: bytes} sidecars (e.g. a config json) written
@@ -94,11 +101,15 @@ def save(root: str, step: int, tree: Any, *,
     ``ctx``: the :class:`repro_torch.distributed.runtime.DistributedContext`
     (default: the process-wide one). Multi-controller: EVERY host calls save
     with the same arguments; each copies to the host and writes only the
-    leaves it owns, and host 0 commits (:func:`_write_sharded`)."""
+    leaves it owns, and host 0 commits (:func:`_write_sharded`).
+
+    ``specs``: ``tree``'s layout over the hosts (``fsdp.Shard`` per leaf);
+    each split leaf is gathered and written whole."""
     ctx = ctx or runtime.get_context()
     paths, leaves = tu.flatten_with_paths(tree)
     if ctx.is_multi_controller:
-        return _write_sharded(root, step, paths, leaves, extra_files, ctx)
+        splits = tu.leaves(specs) if specs is not None else [fsdp.WHOLE] * len(leaves)
+        return _write_sharded(root, step, paths, leaves, splits, extra_files, ctx)
     return _write(root, step, paths, [_host_array(l) for l in leaves], extra_files)
 
 
@@ -217,15 +228,16 @@ def _wait_for(pred, desc: str, ctx) -> None:
         time.sleep(0.05)
 
 
-def _write_sharded(root: str, step: int, paths, leaves, extra_files, ctx) -> str:
+def _write_sharded(root: str, step: int, paths, leaves, splits, extra_files, ctx) -> str:
     """Multi-controller save over a SHARED filesystem, the JAX package's
     protocol (token-stamped, so a retried save never consumes an earlier
     attempt's receipts):
 
       1. host 0 resets the staging dir and posts ``staging.json`` with a
          fresh token; the peers wait for it.
-      2. every host writes the leaves it OWNS (leaf i -> host i % n_hosts)
-         and posts a ``host_N.done`` receipt echoing the token.
+      2. every host writes the leaves it OWNS (leaf i -> host i % n_hosts;
+         a split leaf gathered whole first, by every host) and posts a
+         ``host_N.done`` receipt echoing the token.
       3. host 0 collects every receipt, writes ``shard_manifest.json``, the
          extra sidecars and ``manifest.json``, then rename-commits.
       4. the peers wait for the committed dir to carry their token.
@@ -248,13 +260,17 @@ def _write_sharded(root: str, step: int, paths, leaves, extra_files, ctx) -> str
                   f"host 0 to open staging for step {step}", ctx)
         token = _read_json(staging)["token"]
 
-    owned_files = []
-    for i, leaf in enumerate(leaves):
+    owned_files, metas = [], []
+    for i, (leaf, s) in enumerate(zip(leaves, splits)):
+        if s.split:
+            leaf = fsdp.all_gather_leaf(leaf, s, ctx)
+        metas.append(_leaf_meta(leaf))
         if i % n != h:
             continue
         fname = f"leaf_{i:05d}.npy"
         np.save(os.path.join(tmp, fname), _host_array(leaf))
         owned_files.append(fname)
+        del leaf
     _json_atomic(os.path.join(tmp, f"host_{h}.done"),
                  {"token": token, "host": h, "files": owned_files})
 
@@ -273,8 +289,7 @@ def _write_sharded(root: str, step: int, paths, leaves, extra_files, ctx) -> str
         })
         _write_extras(tmp, extra_files)
         manifest = {"step": step, "n_hosts": n, "leaves": []}
-        for i, (p, leaf) in enumerate(zip(paths, leaves)):
-            shape, dtype = _leaf_meta(leaf)
+        for i, (p, (shape, dtype)) in enumerate(zip(paths, metas)):
             manifest["leaves"].append({"path": p, "file": f"leaf_{i:05d}.npy", "shape": shape,
                                        "dtype": dtype, "host": i % n})
         _json_atomic(os.path.join(tmp, "manifest.json"), manifest)
@@ -328,13 +343,18 @@ def read_extra_file(root: str, fname: str, *, step: int | None = None) -> bytes:
         return f.read()
 
 
-def restore(root: str, template: Any, *, step: int | None = None):
+def restore(root: str, template: Any, *, step: int | None = None, specs: Any = None):
     """Restore into the structure of ``template`` (dicts, NamedTuples,
     tuples, lists). A :class:`ShapeDtype` leaf comes back as a numpy array
     of its dtype; a tensor leaf as a tensor of its dtype on its device.
     Returns (tree, step). Raises on a leaf missing from the checkpoint
     (naming what each side has that the other lacks) or a shape that
-    differs; leaves the template lacks are ignored."""
+    differs; leaves the template lacks are ignored.
+
+    ``specs``: the template's layout (``fsdp.Shard`` per leaf, this
+    process's rank in each): a split leaf is read as this process's slice of
+    the whole one the checkpoint holds, whatever the number of processes
+    that wrote it."""
     d, step = step_dir(root, step)
     with open(os.path.join(d, "manifest.json")) as f:
         by_path = {e["path"]: e for e in json.load(f)["leaves"]}
@@ -349,12 +369,22 @@ def restore(root: str, template: Any, *, step: int | None = None):
             "differs from the one that saved the checkpoint"
         )
 
+    splits = iter(tu.leaves(specs) if specs is not None else [])
+
     def load(keys, tmpl):
         p = tu.keystr(keys)
-        arr = np.load(os.path.join(d, by_path[p]["file"]))
-        if tuple(arr.shape) != tuple(tmpl.shape):
+        s = next(splits, fsdp.WHOLE)
+        arr = np.load(os.path.join(d, by_path[p]["file"]), mmap_mode="r" if s.split else None)
+        if (fsdp.local_shape(arr.shape, s) != tuple(tmpl.shape)
+                or (s.split and arr.shape[s.dim] != s.whole)):
             raise ValueError(f"shape mismatch at {p}: checkpoint {arr.shape} vs "
-                             f"template {tuple(tmpl.shape)}")
+                             f"template {tuple(tmpl.shape)}" + (f" ({s})" if s.split else ""))
+        if s.split:
+            mine = np.zeros(tmpl.shape, arr.dtype)
+            n = s.stop - s.start
+            idx = (slice(None),) * s.dim
+            mine[idx + (slice(0, n),)] = arr[idx + (slice(s.start, s.stop),)]
+            arr = mine
         if isinstance(tmpl, torch.Tensor):
             return torch.from_numpy(arr).to(device=tmpl.device, dtype=tmpl.dtype)
         return arr.astype(tmpl.dtype)

@@ -109,14 +109,17 @@ class Supervisor:
         state_template: Callable[[], Any],
         step_fn: Callable[[Any, int], Any],  # (state, step) -> state
         n_steps: int,
+        specs: Any = None,
     ):
         """Run steps up to ``n_steps`` with checkpoint/restart: ``step_fn``
         raising is a node failure; the state is restored (into
         ``state_template()``'s structure, devices and dtypes) and the run
-        continues until ``max_restarts`` is exhausted."""
+        continues until ``max_restarts`` is exhausted. ``specs``: the
+        state's layout over the hosts (``fsdp.Shard`` per leaf), passed to
+        every save and restore, as JAX's ``run(shardings=)``."""
         start = ckpt.latest_step(self.ckpt_root)
         if start is not None:
-            state, start = ckpt.restore(self.ckpt_root, state_template())
+            state, start = ckpt.restore(self.ckpt_root, state_template(), specs=specs)
             start += 1
         else:
             state, start = init_state(), 0
@@ -131,7 +134,7 @@ class Supervisor:
                     self.heartbeat.beat(step)
                 if (step + 1) % self.save_every == 0 or step + 1 == n_steps:
                     ctx = self._context()
-                    ckpt.save(self.ckpt_root, step, state, ctx=ctx)
+                    ckpt.save(self.ckpt_root, step, state, ctx=ctx, specs=specs)
                     if ctx.host_id == 0:
                         ckpt.gc_old(self.ckpt_root, keep=self.keep)
                 step += 1
@@ -146,7 +149,7 @@ class Supervisor:
                 if last is None:
                     state, step = init_state(), 0
                 else:
-                    state, last = ckpt.restore(self.ckpt_root, state_template())
+                    state, last = ckpt.restore(self.ckpt_root, state_template(), specs=specs)
                     step = last + 1
         # the run is done once its checkpoints are committed: join every
         # async writer and re-raise the first failed write

@@ -11,6 +11,14 @@ Int8 moments keep the parameter's shape with one f32 scale per last-dim
 row; the second moment is stored in the sqrt domain, and the eps floor is
 raised to the quantization noise level (1e-5).
 
+Sharded state (``apply_updates(splits=, ctx=)``, ``distributed/fsdp.py``):
+each process updates its own slices. The global norm is the sum of squares
+over every process's slices, all-reduced, plus the whole leaves' counted
+once; an int8 moment whose row spans processes (the leaf split along its
+last dimension: the ``wo`` leaves and ``tok``) takes the whole row's max,
+all-reduced, as its scale, so its payload and scales are those of the
+whole leaf bit for bit.
+
 Memory: a leaf of more than ``SLICE_ELEMS`` elements is updated (and its
 share of the global norm summed) in slices along dim 0, so no more than one
 slice's f32 temporaries are alive at once — an expert leaf of olmoe-1b-7b
@@ -21,12 +29,14 @@ state's storage, as JAX's jitted step reuses its donated state.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, NamedTuple
 
 import torch
 
 from repro_torch import tree as tu
+from repro_torch.distributed import fsdp
 
 _F32 = torch.float32
 SLICE_ELEMS = 1 << 25  # elements of a leaf taken at once by the update and the norm
@@ -42,10 +52,13 @@ def _f32(x: float, like: torch.Tensor) -> torch.Tensor:
 # ------------------------------------------------------- int8 moment codec --
 
 
-def _q8_pack(x: torch.Tensor):
-    """f32 leaf -> (int8 payload, same shape; f32 scale per last-dim row)."""
+def _q8_pack(x: torch.Tensor, row_max=None):
+    """f32 leaf -> (int8 payload, same shape; f32 scale per last-dim row).
+    ``row_max``: the rows' max |x| made whole (a row split over processes),
+    applied to this slice's."""
     if x.dim():
-        scale = x.abs().amax(dim=-1) / 127.0
+        amax = x.abs().amax(dim=-1)
+        scale = (amax if row_max is None else row_max(amax)) / 127.0
         q = torch.round(x / torch.clamp(scale[..., None], min=1e-12))
     else:
         scale = x.abs() / 127.0
@@ -139,24 +152,40 @@ def _slices(x: torch.Tensor) -> list:
     return [slice(i, i + rows) for i in range(0, x.shape[0], rows)]
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    total = 0
-    for leaf in tu.leaves(tree):
-        for s in _slices(leaf):
-            total = total + torch.sum(torch.square(leaf[s].to(_F32)))
-    return torch.sqrt(total)
+def global_norm(tree: Any, *, splits: Any = None, ctx=None) -> torch.Tensor:
+    """The f32 norm of every leaf. ``splits``: the tree's layout
+    (``fsdp.Shard`` per leaf; None: every leaf whole) over the processes of
+    ``ctx``: the split leaves' squares summed over the processes, the whole
+    ones once."""
+    leaves = tu.leaves(tree)
+    layout = [fsdp.WHOLE] * len(leaves) if splits is None else tu.leaves(splits)
+    whole = torch.zeros((), dtype=_F32, device=leaves[0].device)
+    split = torch.zeros_like(whole)
+    for leaf, s in zip(leaves, layout):
+        for sl in _slices(leaf):
+            sq = torch.sum(torch.square(leaf[sl].to(_F32)))
+            if s.split:
+                split = split + sq
+            else:
+                whole = whole + sq
+    if splits is not None:
+        whole = fsdp.allreduce_(split, ctx, "sum") + whole
+    return torch.sqrt(whole)
 
 
 @torch.no_grad()
 def apply_updates(params: Any, grads: Any, state: AdamWState, cfg: AdamWConfig, *,
-                  donate: bool = False):
+                  donate: bool = False, splits: Any = None, ctx=None):
     """One AdamW step with the global-norm grad clip. Returns (new_params,
     new_state). ``donate``: the caller gives up ``params`` and ``state``,
-    and the new values are written into their tensors."""
+    and the new values are written into their tensors. ``splits``: the
+    params' layout over the processes of ``ctx`` (``fsdp.Shard`` per leaf;
+    None: every leaf whole), the params, grads and moments this process's
+    slices."""
     step = state.step + 1
     lr = lr_schedule(cfg, step)
     f = lambda x: _f32(x, lr)  # noqa: E731
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, splits=splits, ctx=ctx)
     clip = torch.minimum(f(1.0), f(cfg.grad_clip) / torch.clamp(gnorm, min=1e-12))
     b1c = f(1.0) - torch.pow(f(cfg.b1), step.to(_F32))
     b2c = f(1.0) - torch.pow(f(cfg.b2), step.to(_F32))
@@ -164,7 +193,7 @@ def apply_updates(params: Any, grads: Any, state: AdamWState, cfg: AdamWConfig, 
     b1, nb1, b2, nb2 = f(cfg.b1), f(1 - cfg.b1), f(cfg.b2), f(1 - cfg.b2)
     wd, eps_t = f(cfg.weight_decay), f(eps)
 
-    def upd(p, g, m_leaf, v_leaf):
+    def upd(p, g, m_leaf, v_leaf, row_max=None):
         g = g.to(_F32) * clip
         if cfg.int8_moments:
             m = _q8_unpack(m_leaf.q, m_leaf.scale)
@@ -178,25 +207,33 @@ def apply_updates(params: Any, grads: Any, state: AdamWState, cfg: AdamWConfig, 
         delta = mhat / (torch.sqrt(vhat) + eps_t) + wd * p.to(_F32)
         new_p = (p.to(_F32) - lr * delta).to(p.dtype)
         if cfg.int8_moments:
-            return new_p, Q8Leaf(*_q8_pack(m)), Q8Leaf(*_q8_pack(torch.sqrt(v)))
+            return (new_p, Q8Leaf(*_q8_pack(m, row_max)),
+                    Q8Leaf(*_q8_pack(torch.sqrt(v), row_max)))
         return new_p, m, v
 
-    def sliced(p, g, m_leaf, v_leaf):
+    def sliced(p, g, m_leaf, v_leaf, s=None):
         """``upd`` over dim-0 slices, each written into the output leaves:
-        the old ones (donate) or new ones of the same shapes."""
+        the old ones (donate) or new ones of the same shapes. ``s``: the
+        leaf's layout; split along its last dimension, each row's int8
+        scale is the max over every process's part of the row."""
+        row_max = None
+        if cfg.int8_moments and s is not None and s.split and s.dim == p.dim() - 1:
+            row_max = lambda a: fsdp.allreduce_(a, ctx, "max")  # noqa: E731
+        upd_ = functools.partial(upd, row_max=row_max)
         parts = _slices(p)
         if len(parts) == 1 and not donate:
-            return upd(p, g, m_leaf, v_leaf)
+            return upd_(p, g, m_leaf, v_leaf)
         out = (p, m_leaf, v_leaf)
         if not donate:
             out = tu.tree_map(torch.empty_like, out)
-        for s in parts:
-            new = upd(*(tu.tree_map(lambda x: x[s], a) for a in (p, g, m_leaf, v_leaf)))
+        for sl in parts:
+            new = upd_(*(tu.tree_map(lambda x: x[sl], a) for a in (p, g, m_leaf, v_leaf)))
             for dst, src in zip(tu.leaves(out), tu.leaves(new)):
-                dst[s].copy_(src)
+                dst[sl].copy_(src)
         return out
 
-    out = tu.tree_map(sliced, params, grads, state.m, state.v, is_leaf=_is_q8)
+    rest = () if splits is None else (splits,)
+    out = tu.tree_map(sliced, params, grads, state.m, state.v, *rest, is_leaf=_is_q8)
     is_out = lambda x: type(x) is tuple  # noqa: E731
     pick = lambda i: tu.tree_map(lambda o: o[i], out, is_leaf=is_out)  # noqa: E731
     if donate:

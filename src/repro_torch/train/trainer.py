@@ -24,6 +24,19 @@ microbatch accumulation and before the compression, the clipping and the
 update — the order JAX's psum-then-compress gives. Every host then applies
 the same update to the same state.
 
+Sharded state (``make_train_step(ctx=, specs=)``, the counterpart of the
+JAX launcher's ``default_rules(mesh, fsdp=cfg.fsdp)``): :func:`state_specs`
+lays the state out over the processes (``repro_torch.distributed.fsdp``),
+and the state holds this process's slices of every leaf with an ``embed``
+axis — parameters (``api.init_params(specs=)`` draws them a layer at a
+time), and so gradients and both moments.
+The loss reads each split leaf through a gather (``fsdp.Gathered``), one
+layer at a time, whose backward reduce-scatters that layer's gradient as
+autograd produces it; :func:`finish_step` averages only the whole leaves'
+gradients and the loss over the hosts, and the update runs on the slices
+(``optimizer.apply_updates(splits=)``). Error-feedback compression is
+refused with sharded state.
+
 Sharding metadata: :func:`train_state_axes` gives the train state's
 logical axes (``repro_torch.distributed.sharding``); ``make_train_step``'s
 ``grad_shardings`` takes the gradients' spec tree, checked against the
@@ -38,7 +51,7 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch import tree as tu
-from repro_torch.distributed import collectives
+from repro_torch.distributed import collectives, fsdp
 from repro_torch.train import optimizer as opt
 
 
@@ -48,7 +61,19 @@ class TrainState(NamedTuple):
     ef: Optional[opt.EFState]  # error-feedback residual (None = off)
 
 
-def init_train_state(params, ocfg: opt.AdamWConfig, *, grad_compress: bool = False):
+def init_train_state(params, ocfg: opt.AdamWConfig, *, grad_compress: bool = False,
+                     specs: Optional[TrainState] = None):
+    """The state of ``params``. ``specs`` (:func:`state_specs`): ``params``
+    are this process's slices (``api.init_params(specs=specs.params)``, or
+    ``fsdp.shard_tree``), and the moments take the slices' shapes."""
+    if specs is not None:
+        if grad_compress:
+            raise ValueError("grad_compress with a sharded state: the error-feedback "
+                             "payload's per-row scales would need the whole rows")
+        for p, s in zip(tu.leaves(params), tu.leaves(specs.params)):
+            if s.split and p.shape[s.dim] != s.chunk:
+                raise ValueError(f"a param of shape {tuple(p.shape)} is not this process's "
+                                 f"slice under {s}")
     return TrainState(
         params=params,
         opt=opt.init_state(params, ocfg),
@@ -63,6 +88,16 @@ def train_state_axes(param_axes: Any, ocfg: opt.AdamWConfig, *, grad_compress: b
         opt=opt.state_axes(param_axes, ocfg),
         ef=opt.EFState(residual=param_axes) if grad_compress else None,
     )
+
+
+def state_specs(param_axes: Any, param_shapes: Any, ocfg: opt.AdamWConfig, rules, ctx):
+    """The layout of :func:`init_train_state`'s state over the processes of
+    ``ctx`` under the sharding ``rules`` (``sharding.default_rules(mesh,
+    fsdp=True)`` splits every ``embed`` axis): a TrainState of
+    ``fsdp.Shard``. ``param_shapes``: the params tree, ``meta`` tensors
+    will do."""
+    return fsdp.local_specs(train_state_axes(param_axes, ocfg),
+                            init_train_state(param_shapes, ocfg), rules, ctx)
 
 
 def _check_grad_shardings(grad_shardings: Any) -> Callable:
@@ -97,12 +132,16 @@ def _split_microbatches(batch: dict, n_mb: int) -> dict:
 STACKED = {"layers": 1, "mamba": 2, "tail": 1}
 
 
-def _autograd_views(params: dict, grads: dict, *, accumulate: bool) -> dict:
+def _autograd_views(params: dict, grads: dict, *, accumulate: bool, specs=None,
+                    ctx=None) -> dict:
     """The params tree the loss sees: every leaf a detached view that
     requires grad, each subtree of :data:`STACKED` as nested lists of
     per-layer trees (one level per layer axis). Each view's gradient is
     copied (or, with ``accumulate``, added in f32) into the matching view of
-    ``grads`` when autograd produces it, and then dropped."""
+    ``grads`` when autograd produces it, and then dropped. ``specs``: the
+    params' layout over the processes of ``ctx``; each per-layer tree (and
+    each unstacked subtree) is then an ``fsdp.Gathered`` over the views of
+    this process's slices."""
 
     def view(p, g):
         v = p.detach().requires_grad_(True)
@@ -117,28 +156,40 @@ def _autograd_views(params: dict, grads: dict, *, accumulate: bool) -> dict:
         v.register_post_accumulate_grad_hook(land)
         return v
 
-    def per_layer(p, g, lead: int):
+    def per_layer(p, g, sp, lead: int):
         if not lead:
-            return tu.tree_map(view, p, g)
+            views = tu.tree_map(view, p, g)
+            if sp is None:
+                return views
+            if isinstance(views, dict):
+                return fsdp.Gathered(views, sp, ctx)
+            return fsdp.gather(views, sp, ctx)
         n = tu.leaves(p)[0].shape[0]
+        inner = None if sp is None else tu.tree_map(lambda s: s.inner(1), sp)
         return [per_layer(tu.tree_map(lambda a: a[i], p), tu.tree_map(lambda a: a[i], g),
-                          lead - 1) for i in range(n)]
+                          inner, lead - 1) for i in range(n)]
 
-    return {k: per_layer(params[k], grads[k], STACKED.get(k, 0)) for k in params}
+    return {k: per_layer(params[k], grads[k], None if specs is None else specs[k],
+                         STACKED.get(k, 0)) for k in params}
 
 
-def loss_and_grads(loss_fn: Callable, params: dict, batch: dict, *, n_microbatch: int = 1):
+def loss_and_grads(loss_fn: Callable, params: dict, batch: dict, *, n_microbatch: int = 1,
+                   specs=None, ctx=None):
     """(loss, grads) of ``loss_fn`` at ``params`` over ``batch``: one
     backward in the parameters' dtype, or the f32 mean over
-    ``n_microbatch`` microbatches. The loss is an f32 scalar."""
+    ``n_microbatch`` microbatches. The loss is an f32 scalar. ``specs``:
+    the params' layout over the processes of ``ctx`` (``params`` this
+    process's slices); the split leaves' gradients come back as this
+    process's slices of their mean over the processes."""
     f32 = torch.float32
     if n_microbatch == 1:
         grads = tu.tree_map(torch.zeros_like, params)
-        loss = loss_fn(_autograd_views(params, grads, accumulate=False), batch)
+        loss = loss_fn(_autograd_views(params, grads, accumulate=False, specs=specs, ctx=ctx),
+                       batch)
         loss.backward()
         return loss.detach().to(f32), grads
     grads = tu.tree_map(lambda p: torch.zeros(p.shape, dtype=f32, device=p.device), params)
-    views = _autograd_views(params, grads, accumulate=True)
+    views = _autograd_views(params, grads, accumulate=True, specs=specs, ctx=ctx)
     mbs = _split_microbatches(batch, n_microbatch)
     loss = torch.zeros((), dtype=f32, device=tu.leaves(params)[0].device)
     for i in range(n_microbatch):
@@ -159,6 +210,7 @@ def make_train_step(
     grad_shardings: Any = None,
     batch_sharding: Any = None,
     ctx=None,
+    specs: Optional[TrainState] = None,
 ):
     """Returns ``train_step(state, batch) -> (new_state, metrics)``; the
     metrics are ``loss``, ``grad_norm``, ``lr`` and ``step``. ``batch`` is a
@@ -167,6 +219,9 @@ def make_train_step(
     ``ctx``: a :class:`repro_torch.distributed.runtime.DistributedContext`.
     Multi-controller: the gradients and the loss are averaged over the
     hosts before the update, so every host steps the same state.
+
+    ``specs``: the state's layout (:func:`state_specs`) over the processes
+    of ``ctx``'s group: the step takes and returns a sharded state.
 
     ``grad_shardings``: the gradients' spec tree (``sharding.tree_specs``
     of the parameters' axes), checked against the parameters' structure at
@@ -177,28 +232,40 @@ def make_train_step(
                                   "pass ctx= (a multi-controller DistributedContext) for "
                                   "the data-parallel step")
     data_parallel = ctx is not None and ctx.is_multi_controller
+    if specs is not None:
+        if ctx is None or ctx.backend is None:
+            raise ValueError("specs= lays the state out over a job's processes: pass the "
+                             "ctx= of its process group")
+        if grad_compress:
+            raise ValueError("grad_compress is refused with a sharded state (specs=)")
+    split = None if specs is None else specs.params
 
     def train_step(state: TrainState, batch: dict):
         nonlocal check_specs
         if check_specs is not None:
             check_specs(state.params)
             check_specs = None
-        loss, grads = loss_and_grads(loss_fn, state.params, batch, n_microbatch=n_microbatch)
+        loss, grads = loss_and_grads(loss_fn, state.params, batch, n_microbatch=n_microbatch,
+                                     specs=split, ctx=ctx)
         return finish_step(state, loss, grads, ocfg, grad_compress=grad_compress,
-                           ctx=ctx if data_parallel else None)
+                           ctx=ctx if data_parallel or split is not None else None, splits=split)
 
     return train_step
 
 
 def finish_step(state: TrainState, loss, grads, ocfg: opt.AdamWConfig, *,
-                grad_compress: bool = False, ctx=None):
+                grad_compress: bool = False, ctx=None, splits=None):
     """The step after the gradients: the data-parallel average over the
     hosts of ``ctx`` (None: one host), the error-feedback compression, the
     clipped AdamW update written into ``state``, and the metrics. Returns
-    (new state, metrics)."""
+    (new state, metrics). ``splits``: the params' layout (``fsdp.Shard``
+    per leaf); the split leaves' gradients arrive averaged, and only the
+    whole ones and the loss are averaged here."""
     if ctx is not None:
         loss = loss.reshape(1)
-        collectives.allreduce_mean_(tu.leaves(grads) + [loss], ctx)
+        mean = tu.leaves(grads) if splits is None else [
+            g for g, s in zip(tu.leaves(grads), tu.leaves(splits)) if not s.split]
+        collectives.allreduce_mean_(mean + [loss], ctx)
         loss = loss[0]
     new_ef = None
     if grad_compress and state.ef is not None:
@@ -206,10 +273,11 @@ def finish_step(state: TrainState, loss, grads, ocfg: opt.AdamWConfig, *,
         is_pair = lambda x: type(x) is tuple  # noqa: E731
         grads = tu.tree_map(lambda pr: pr[0], pairs, is_leaf=is_pair)
         new_ef = opt.EFState(residual=tu.tree_map(lambda pr: pr[1], pairs, is_leaf=is_pair))
-    new_params, new_opt = opt.apply_updates(state.params, grads, state.opt, ocfg, donate=True)
+    new_params, new_opt = opt.apply_updates(state.params, grads, state.opt, ocfg, donate=True,
+                                            splits=splits, ctx=ctx)
     metrics = {
         "loss": loss,
-        "grad_norm": opt.global_norm(grads),
+        "grad_norm": opt.global_norm(grads, splits=splits, ctx=ctx),
         "lr": opt.lr_schedule(ocfg, new_opt.step),
         "step": new_opt.step.clone(),  # the state's own step is updated in place
     }

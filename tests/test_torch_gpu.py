@@ -12,8 +12,9 @@ smoke configs on the card against the CPU, qwen1.5-0.5b at full width; a
 recurrent and a modal family on the card against the CPU); LM
 training (one train step at the smoke configs on the card against the CPU,
 the training launcher at qwen1.5-0.5b's full width); two processes sharing
-the card in one sharded detector evaluation; and, on four cards, the NCCL
-branch (one process per card) and the single-process card gather.
+the card in one sharded detector evaluation; on four cards, the NCCL
+branch (one process per card) and the single-process card gather; and, on
+two cards, the sharded (``fsdp``) training state over NCCL.
 Needs a CUDA device and nothing of JAX; skips without a card:
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
@@ -1039,6 +1040,54 @@ def test_four_cards_nccl_and_card_gather(cuda, tmp_path):
         assert o["embed_equal"] and o["embed_grad_err"] <= 1e-5
         assert o["embed_grad_local"] == [16, 8]
         assert o["kv_equal"] and o["mm_err"] <= 1e-4
+
+
+@pytest.mark.gpu
+def test_fsdp_two_cards_nccl(cuda, tmp_path):
+    """``launch.train --arch qwen1.5-32b --int8-moments`` at the smoke
+    config (the arch's ``fsdp`` kept) in two processes, one card each, over
+    NCCL: each holds its slices of the state (at most 0.52 of it) and the
+    losses equal one process's within rtol 2e-4, atol 1e-5. Skips with
+    fewer than two cards."""
+    import json
+    import re
+    import socket
+    import subprocess
+    import sys
+
+    from repro_torch.launch import train as launch_train
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    common = ["--arch", "qwen1.5-32b", "--int8-moments", "--steps", "24", "--batch", "8",
+              "--seq", "16"]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    losses_out = tmp_path / "two.json"
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *common, "--coordinator",
+         f"127.0.0.1:{port}", "--num-processes", "2", "--process-id", str(pid),
+         "--losses-out", str(losses_out)],
+        env={**os.environ, "PYTHONPATH": src}, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for pid in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0, out + err[-4000:]
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    for pid, out in enumerate(outs):
+        share = re.search(rf"host {pid}/2: state \d+ of \d+ bytes whole \(([0-9.]+)\)", out)
+        assert share and float(share.group(1)) <= 0.52, out
+    one = launch_train.main(common)["losses"]
+    two = json.loads(losses_out.read_text())
+    np.testing.assert_allclose(two, one, rtol=2e-4, atol=1e-5)
 
 
 @pytest.mark.gpu
