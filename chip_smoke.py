@@ -288,6 +288,27 @@ s. qwen1.5-32b at full width (d_model 5120, 40 heads, d_ff 27392, vocab
    2e-4, atol 1e-5, and each step's gradient norm in both processes that
    of the one process within rtol 1e-2; no kernel launched.
 
+The audio and vlm families' train step (``make_train_step(api.loss_fn)``
+on the frames or patches batch), and compression over the sharded state:
+
+t. whisper-small and llava-next-34b at their smoke configs: one step on
+   the card against the CPU (phase m's three cases, its bounds).
+   whisper-small at full width (12 + 12 layers, d_model 768, vocab 51865,
+   1500 frames, bf16, remat), seq 4096, global batch 4 in 2 microbatches,
+   f32 moments, 4 steps: each step's ms (CUDA events), tokens/s, peak
+   memory, state bytes. llava-next-34b at full width (d_model 7168, 56
+   heads, 8 kv, d_ff 20480, vocab 64000, 2880 patches), 1 of its 60 layers,
+   1024 text tokens, global batch 2 in microbatches of one row, int8
+   moments, error-feedback compression, remat, under its config's
+   ``fsdp``: two processes sharing the card over gloo, each holding its
+   slices of every ``embed``-axis leaf and of the residual, 2 steps; then
+   the same run replicated in this process. Per process: state bytes by
+   part (residual included) and each part's share of the whole (at most
+   0.52 of the whole state), peaks, step ms, the gathers' and
+   reduce-scatters' bytes each step and their host ms in the second. The
+   loss series equal within rtol 2e-4, atol 1e-5, each step's gradient
+   norm within rtol 1e-2; no kernel launched.
+
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 lists each kernel with its launches, error and times.
 """
@@ -2240,11 +2261,11 @@ LM_CKPT_STEPS = (6, 12)
 
 def lm_train_step_both(dev, arch: str, n_mb: int, compress: bool, int8: bool) -> dict:
     """One ``make_train_step`` step at ``smoke_config`` on the CPU and on
-    the card from the same seeded parameters and ``batch_at`` batch (f32,
-    TF32 off), held to the CPU tests' bounds."""
+    the card from the same seeded parameters and ``batch_at`` batch (with
+    frames or patches for the audio and vlm families; f32, TF32 off), held
+    to the CPU tests' bounds."""
     from repro_torch import tree as tu
     from repro_torch.configs import get_config, smoke_config
-    from repro_torch.data import lm_data
     from repro_torch.models import zoo
     from repro_torch.train import optimizer as opt
     from repro_torch.train import trainer
@@ -2253,12 +2274,10 @@ def lm_train_step_both(dev, arch: str, n_mb: int, compress: bool, int8: bool) ->
     api = zoo.get_api(cfg)
     ocfg = opt.AdamWConfig(warmup_steps=2, total_steps=20, int8_moments=int8)
     params0 = api.init_params(SEED, device="cpu")
-    b = lm_data.batch_at(0, batch_size=LM_TRAIN_PARITY_BATCH, seq_len=LM_TRAIN_PARITY_SEQ,
-                         vocab=cfg.vocab_size)
     out = {}
     for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
         p = tu.tree_map(lambda x: x.to(d, copy=True), params0)
-        batch = {k: torch.from_numpy(v).to(d) for k, v in b.items()}
+        batch = modal_batch(cfg, 0, LM_TRAIN_PARITY_BATCH, LM_TRAIN_PARITY_SEQ, d)
         _, grads = trainer.loss_and_grads(api.loss_fn, p, batch, n_microbatch=n_mb)
         state = trainer.init_train_state(p, ocfg, grad_compress=compress)
         new, m = trainer.make_train_step(api.loss_fn, ocfg, n_microbatch=n_mb,
@@ -2950,6 +2969,49 @@ print("CHILD=" + json.dumps(chip_smoke.fsdp_train_run(json.loads(sys.argv[1]))),
 """
 
 
+def sharded_row(k: dict, timed_step: int) -> dict:
+    """A process's row of a sharded run (phases s and t) from its run's
+    dict: layout, state bytes, peaks, each step's ms and collectives, the
+    collectives' host ms in ``timed_step``, losses, launches."""
+    return {"host": k["host"], "processes": k["n"], "backend": k["backend"],
+            "device": k["device"], "split_leaves": k["split_leaves"],
+            "state_bytes": k["state_bytes"],
+            "peak_init_gib": k["peak_init_gib"], "peak_steps_gib": k["peak_steps_gib"],
+            "step_ms": [st["ms"] for st in k["steps"]],
+            "gather_bytes": [st["gather_bytes"] for st in k["steps"]],
+            "reduce_scatter_bytes": [st["reduce_scatter_bytes"] for st in k["steps"]],
+            "gather_calls": [st["gather_calls"] for st in k["steps"]],
+            "reduce_scatter_calls": [st["reduce_scatter_calls"] for st in k["steps"]],
+            "timed_step": timed_step, "gather_ms": k["steps"][timed_step]["gather_ms"],
+            "reduce_scatter_ms": k["steps"][timed_step]["reduce_scatter_ms"],
+            "losses": k["losses"], "grad_norms": k["grad_norms"],
+            "kernel_launches": k["kernel_launches"]}
+
+
+def sharded_compare(two: list, one: dict, seconds: dict, phase: str, tag) -> dict:
+    """Two processes' loss and gradient-norm series against one process's
+    (phases s and t): printed, then held to FSDP_LOSS_RTOL/ATOL and
+    FSDP_GNORM_RTOL, every value finite."""
+    a, b = np.asarray(two[0]["losses"]), np.asarray(one["losses"])
+    ga, gb = np.asarray([k["grad_norms"] for k in two]), np.asarray(one["grad_norms"])
+    compare = {"losses_two": a.tolist(), "losses_one": b.tolist(),
+               "max_rel_diff": float(np.max(np.abs(a - b) / np.abs(b))),
+               "within_bound": bool(len(a) == len(b) and np.all(
+                   np.abs(a - b) <= FSDP_LOSS_ATOL + FSDP_LOSS_RTOL * np.abs(b))),
+               "grad_norms_two": ga.tolist(), "grad_norms_one": gb.tolist(),
+               "grad_norm_max_rel_diff": float(np.max(np.abs(ga - gb) / np.abs(gb))),
+               "grad_norms_within_bound": bool(ga.shape == (2, len(gb)) and np.all(
+                   np.abs(ga - gb) <= FSDP_GNORM_RTOL * np.abs(gb))), **seconds}
+    print(json.dumps({"phase": phase, **compare, **tag}), flush=True)
+    if not (np.all(np.isfinite(a)) and np.all(np.isfinite(b)) and compare["within_bound"]):
+        raise AssertionError(f"{phase}: sharded losses off the one-process ones: {compare}")
+    if not (np.all(np.isfinite(ga)) and np.all(np.isfinite(gb))
+            and compare["grad_norms_within_bound"]):
+        raise AssertionError(f"{phase}: sharded gradient norms off the one-process ones: "
+                             f"{compare}")
+    return compare
+
+
 def phase_fsdp(dev, tag) -> dict:
     """(s) The sharded state on the card: two processes against one."""
     def total(b):
@@ -2969,37 +3031,14 @@ def phase_fsdp(dev, tag) -> dict:
     whole = total(one["state_bytes"])
     rows = []
     for k in two + [one]:
-        row = {"host": k["host"], "processes": k["n"], "backend": k["backend"],
-               "device": k["device"], "split_leaves": k["split_leaves"],
-               "state_bytes": k["state_bytes"],
+        row = {**sharded_row(k, FSDP_TIMED_STEP),
                "state_share_of_one_process": total(k["state_bytes"]) / whole,
-               "peak_init_gib": k["peak_init_gib"], "peak_steps_gib": k["peak_steps_gib"],
-               "step_ms": [st["ms"] for st in k["steps"]],
-               "gather_bytes": [st["gather_bytes"] for st in k["steps"]],
-               "reduce_scatter_bytes": [st["reduce_scatter_bytes"] for st in k["steps"]],
-               "gather_calls": [st["gather_calls"] for st in k["steps"]],
-               "reduce_scatter_calls": [st["reduce_scatter_calls"] for st in k["steps"]],
-               "timed_step": FSDP_TIMED_STEP,
-               "gather_ms": k["steps"][FSDP_TIMED_STEP]["gather_ms"],
-               "reduce_scatter_ms": k["steps"][FSDP_TIMED_STEP]["reduce_scatter_ms"],
-               "losses": k["losses"], "grad_norms": k["grad_norms"],
-               "tok_per_s": k["tok_per_s"],
-               "kernel_launches": k["kernel_launches"]}
+               "tok_per_s": k["tok_per_s"]}
         rows.append(row)
         print(json.dumps({"phase": "fsdp_train", "arch": FSDP_ARCH, "layers": FSDP_LAYERS,
                           "argv": FSDP_ARGV, **row, **tag}), flush=True)
-    a, b = np.asarray(two[0]["losses"]), np.asarray(one["losses"])
-    ga, gb = (np.asarray([k["grad_norms"] for k in two]), np.asarray(one["grad_norms"]))
-    compare = {"losses_two": a.tolist(), "losses_one": b.tolist(),
-               "max_rel_diff": float(np.max(np.abs(a - b) / np.abs(b))),
-               "within_bound": bool(len(a) == len(b) and np.all(
-                   np.abs(a - b) <= FSDP_LOSS_ATOL + FSDP_LOSS_RTOL * np.abs(b))),
-               "grad_norms_two": ga.tolist(), "grad_norms_one": gb.tolist(),
-               "grad_norm_max_rel_diff": float(np.max(np.abs(ga - gb) / np.abs(gb))),
-               "grad_norms_within_bound": bool(ga.shape == (2, len(gb)) and np.all(
-                   np.abs(ga - gb) <= FSDP_GNORM_RTOL * np.abs(gb))),
-               "two_process_s": two_s, "one_process_s": one_s}
-    print(json.dumps({"phase": "fsdp_compare", **compare, **tag}), flush=True)
+    compare = sharded_compare(two, one, {"two_process_s": two_s, "one_process_s": one_s},
+                              "fsdp_compare", tag)
     for r in rows[:2]:
         if not (r["backend"] == "gloo" and r["split_leaves"] > 0
                 and r["state_share_of_one_process"] <= FSDP_STATE_SHARE
@@ -3008,15 +3047,267 @@ def phase_fsdp(dev, tag) -> dict:
             raise AssertionError(f"process {r['host']} of the sharded run: {r}")
     if rows[2]["split_leaves"] or rows[2]["gather_bytes"][0]:
         raise AssertionError(f"the one-process reference is not replicated: {rows[2]}")
-    if not (all(np.isfinite(a)) and all(np.isfinite(b)) and compare["within_bound"]):
-        raise AssertionError(f"sharded losses off the one-process ones: {compare}")
-    if not (np.all(np.isfinite(ga)) and np.all(np.isfinite(gb))
-            and compare["grad_norms_within_bound"]):
-        raise AssertionError(f"sharded gradient norms off the one-process ones: {compare}")
     launches = sum(r["kernel_launches"] for r in rows)
     if launches:
         raise AssertionError(f"{launches} kernel launches in LM training")
     return {"rows": rows, "compare": compare, "kernel_launches": launches}
+
+
+# -------------------------------- t. the audio and vlm families' train step
+
+# whisper-small at full width: the train_4k shape (seq 4096; global batch 256
+# cut to 4) in the dry-run preset's 2 microbatches, f32 moments
+WHISPER_TRAIN = {"seq": 4096, "batch": 4, "microbatch": 2, "steps": 4}
+# llava-next-34b at full width under its config's fsdp: 1 of its 60 layers,
+# 1024 text tokens after the 2880 patches, global batch 2 in microbatches of
+# one row (one process: 2; each of two processes: 1), int8 moments,
+# error-feedback compression
+LLAVA_TRAIN = {"layers": 1, "seq": 1024, "batch": 2, "microbatch": 2, "steps": 2,
+               "timed_step": 1}
+MODAL_PARITY = ("whisper-small", "llava-next-34b")  # card vs CPU at smoke_config
+MODAL_STATE_SHARE = 0.52  # a process's state of the whole state's, each of two
+
+
+def modal_batch(cfg, step: int, local_batch: int, seq: int, dev, host_id: int = 0,
+                n_hosts: int = 1) -> dict:
+    """This host's rows of global step ``step`` on ``dev``:
+    ``lm_data.batch_at``'s tokens and labels and, for the audio and vlm
+    families, the stub frontend's frames (encoder_seq, d_model) or patches
+    (n_patches, D_VISION) of each row drawn from numpy's generator seeded
+    with (SEED, the row's global index), so that any split of the batch
+    over hosts sees the same rows."""
+    from repro_torch.data import lm_data
+    from repro_torch.models import llava
+
+    b = lm_data.batch_at(step, batch_size=local_batch, seq_len=seq, vocab=cfg.vocab_size,
+                         host_id=host_id, n_hosts=n_hosts)
+    if cfg.family not in ("audio", "vlm"):
+        return {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    shape = ((cfg.encoder_seq, cfg.d_model) if cfg.family == "audio"
+             else (cfg.n_patches, llava.D_VISION))
+    rows = [np.random.default_rng((SEED, (step * local_batch + i) * n_hosts + host_id))
+            .standard_normal(shape, dtype=np.float32) for i in range(local_batch)]
+    return {**{k: torch.from_numpy(v).to(dev) for k, v in b.items()},
+            "frames" if cfg.family == "audio" else "patches": torch.from_numpy(
+                np.stack(rows)).to(dev)}
+
+
+def whisper_train_run(dev, tag) -> dict:
+    """whisper-small at full width (bf16, remat) through
+    ``make_train_step(api.loss_fn, ...)`` on the frames batch: each step's
+    device ms (CUDA events, the median after the first), tokens/s, peak
+    memory beyond what the process held before, the state's bytes by
+    part."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import zoo
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+
+    w = WHISPER_TRAIN
+    cfg = get_config("whisper-small")
+    api = zoo.get_api(cfg)
+    ocfg = opt.AdamWConfig(total_steps=w["steps"], warmup_steps=1)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    state = trainer.init_train_state(api.init_params(SEED, device=dev), ocfg)
+    step = trainer.make_train_step(api.loss_fn, ocfg, n_microbatch=w["microbatch"])
+    ms, losses, gnorms = [], [], []
+    for t in range(w["steps"]):
+        batch = modal_batch(cfg, t, w["batch"], w["seq"], dev)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step(state, batch)
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    median = statistics.median(ms[1:])
+    row = {"arch": "whisper-small", **w, "d_model": cfg.d_model,
+           "layers": [cfg.encoder_layers, cfg.n_layers], "vocab": cfg.vocab_size,
+           "frames": cfg.encoder_seq, "dtype": cfg.dtype, "remat": cfg.remat,
+           "moments": "f32", "cuts": "train_4k global batch 256 -> 4 (2 per microbatch), "
+                                     f"{w['steps']} steps",
+           "step_ms": ms, "step_ms_median": median,
+           "tokens_per_s_median_step": w["batch"] * w["seq"] / median * 1e3,
+           "losses": losses, "grad_norms": gnorms,
+           "peak_memory_gib": (peak - before) / 2**30,
+           "state_bytes": lm_state_bytes(state, w["microbatch"])}
+    print(json.dumps({"phase": "modal_train", **row, **tag}), flush=True)
+    if not (np.all(np.isfinite(losses)) and np.all(np.isfinite(gnorms))):
+        raise AssertionError(f"whisper-small at full width: non-finite losses {losses}")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row
+
+
+def llava_train_run(a: dict) -> dict:
+    """One run of phase t's llava-next-34b training at the cut depth:
+    ``a["coordinator"]`` set, this process is ``a["pid"]`` of
+    ``a["n"]`` (its slices of every ``embed``-axis leaf, ``state_specs(
+    grad_compress=True)``); else one replicated process. Each step timed by
+    CUDA events with fsdp's counters read after it (the collectives' host
+    ms in step ``timed_step``); the state's bytes by part, the residual
+    included, beside the whole state's; peaks beyond what the process held
+    before (the init's, the steps'); the hand-written kernels' launches
+    from a count set to 0 at its start."""
+    from repro_torch import backend
+    from repro_torch import tree as tu
+    from repro_torch.backend import resolve_device
+    from repro_torch.configs import get_config
+    from repro_torch.distributed import fsdp, runtime
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import zoo
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+
+    if a.get("coordinator"):
+        ctx = runtime.initialize(coordinator_address=a["coordinator"], num_processes=a["n"],
+                                 process_id=a["pid"], device=a.get("device"))
+        dev = ctx.device
+    else:
+        ctx, dev = runtime.get_context(), resolve_device(a.get("device"))
+    try:
+        cfg = dataclasses.replace(get_config("llava-next-34b"), n_layers=a["layers"])
+        api = zoo.get_api(cfg)
+        ocfg = opt.AdamWConfig(total_steps=a["steps"], warmup_steps=1, int8_moments=True)
+        local = a["batch"] // ctx.n_hosts
+        n_mb = local * a["microbatch"] // a["batch"]  # microbatches of batch / microbatch rows
+        specs = None
+        if ctx.is_multi_controller:
+            specs = trainer.state_specs(api.param_axes(), api.init_params(0, device="meta"),
+                                        ocfg, shd.default_rules(fsdp.mesh_for(ctx), fsdp=True),
+                                        ctx, grad_compress=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        backend.reset_launches()
+        params = api.init_params(SEED, device=dev, specs=None if specs is None else specs.params)
+        state = trainer.init_train_state(params, ocfg, grad_compress=True, specs=specs)
+        del params
+        torch.cuda.synchronize()
+        peak_init = torch.cuda.max_memory_allocated() - before
+        torch.cuda.reset_peak_memory_stats()
+        step = trainer.make_train_step(api.loss_fn, ocfg, n_microbatch=n_mb, grad_compress=True,
+                                       ctx=ctx, specs=specs)
+        steps, losses, gnorms = [], [], []
+        for t in range(a["steps"]):
+            batch = modal_batch(cfg, t, local, a["seq"], dev, ctx.host_id, ctx.n_hosts)
+            fsdp.TIMED = t == a["timed_step"]
+            fsdp.reset_stats()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, m = step(state, batch)
+            e1.record()
+            torch.cuda.synchronize()
+            steps.append({"ms": e0.elapsed_time(e1), "timed_collectives": fsdp.TIMED,
+                          **fsdp.STATS})
+            fsdp.TIMED = False
+            losses.append(float(m["loss"]))
+            gnorms.append(float(m["grad_norm"]))
+        sizes = launch_train.state_bytes(state, specs, n_mb)
+        out = {"host": ctx.host_id, "n": ctx.n_hosts, "backend": ctx.backend,
+               "device": str(dev), "n_microbatch": n_mb, "local_batch": local,
+               "losses": losses, "grad_norms": gnorms, "steps": steps, "state_bytes": sizes,
+               "split_leaves": 0 if specs is None else sum(s.split for s in tu.leaves(specs)),
+               "residual_split_leaves": 0 if specs is None else sum(
+                   s.split for s in tu.leaves(specs.ef)),
+               "peak_init_gib": peak_init / 2**30,
+               "peak_steps_gib": (torch.cuda.max_memory_allocated() - before) / 2**30,
+               "kernel_launches": sum(backend.launches.values())}
+        del state, step
+    finally:
+        fsdp.TIMED = False
+        if a.get("coordinator"):
+            runtime.shutdown()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+# a process of phase t's two-process job: argv[1] the run, argv[2] the
+# directory of this script
+_LLAVA_CHILD = r"""
+import json, sys
+sys.path.insert(0, sys.argv[2])
+import chip_smoke
+print("CHILD=" + json.dumps(chip_smoke.llava_train_run(json.loads(sys.argv[1]))), flush=True)
+"""
+
+
+def phase_modal_train(dev, tag) -> dict:
+    """(t) The audio and vlm families' train step on the card: one step of
+    whisper-small and llava-next-34b at their smoke configs on the card
+    against the CPU; whisper-small at full width; llava-next-34b at full
+    width (depth and text cut) sharded over two processes sharing the card,
+    with compression, against one replicated process. No hand-written
+    kernel runs on this path: the launch counts, set to 0 before each run,
+    must read 0 after it."""
+    from repro_torch import backend
+    from repro_torch.models import snn_yolo as sy
+
+    def total(b):
+        return sum(v for k, v in b.items() if k != "whole")
+
+    backend.reset_launches()
+    out = {"card_vs_cpu": []}
+    with sy._no_tf32():
+        for arch in MODAL_PARITY:
+            for n_mb, compress, int8 in LM_TRAIN_PARITY:
+                row = lm_train_step_both(dev, arch, n_mb, compress, int8)
+                out["card_vs_cpu"].append(row)
+                print(json.dumps({"phase": "modal_train_card_vs_cpu", **row, **tag}),
+                      flush=True)
+    out["whisper"] = whisper_train_run(dev, tag)
+    parent_launches = sum(backend.launches.values())
+
+    addr = f"127.0.0.1:{free_port()}"
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    two = run_children([["-c", _LLAVA_CHILD, json.dumps(
+        {**LLAVA_TRAIN, "coordinator": addr, "n": 2, "pid": pid}), here] for pid in range(2)])
+    two_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one = llava_train_run(dict(LLAVA_TRAIN))  # in this process
+    one_s = time.perf_counter() - t0
+    rows = []
+    for k in two + [one]:
+        whole = k["state_bytes"]["whole"]
+        row = {**sharded_row(k, LLAVA_TRAIN["timed_step"]), "n_microbatch": k["n_microbatch"],
+               "local_batch": k["local_batch"],
+               "residual_split_leaves": k["residual_split_leaves"],
+               "state_share_of_whole": total(k["state_bytes"]) / total(whole),
+               "share_by_part": {p: k["state_bytes"][p] / whole[p] for p in whole},
+               "state_share_of_one_process": total(k["state_bytes"]) / total(
+                   one["state_bytes"])}
+        rows.append(row)
+        print(json.dumps({"phase": "modal_fsdp_train", "arch": "llava-next-34b", **LLAVA_TRAIN,
+                          "cuts": "depth 60 -> 1, text 4096 -> 1024 tokens, global batch "
+                                  "256 -> 2", **row, **tag}), flush=True)
+    compare = sharded_compare(two, one, {"two_process_s": two_s, "one_process_s": one_s},
+                              "modal_fsdp_compare", tag)
+    for r in rows[:2]:
+        if not (r["backend"] == "gloo" and r["split_leaves"] > 0
+                and r["residual_split_leaves"] > 0
+                and r["state_share_of_whole"] <= MODAL_STATE_SHARE
+                and all(g > 0 for g in r["gather_bytes"])
+                and all(x > 0 for x in r["reduce_scatter_bytes"])):
+            raise AssertionError(f"process {r['host']} of the sharded llava run: {r}")
+    if rows[2]["split_leaves"] or rows[2]["gather_bytes"][0]:
+        raise AssertionError(f"the one-process llava run is not replicated: {rows[2]}")
+    launches = parent_launches + sum(r["kernel_launches"] for r in rows)
+    print(json.dumps({"phase": "modal_train_kernel_launches",
+                      "hand_written_kernel_launches": launches, **tag}), flush=True)
+    if launches:
+        raise AssertionError(f"{launches} kernel launches in the modal LM training")
+    out.update(llava=rows, compare=compare, kernel_launches=launches)
+    return out
 
 
 # --------------------------------------------------- o. the other LM families
@@ -4018,6 +4309,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded = phase_fsdp(dev, tag)
     print(json.dumps({"phase": "elapsed", "after": "s", "s": time.perf_counter() - t_start}),
+          flush=True)
+
+    # ------------------------------- t. the audio and vlm families' train step
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_modal_train(dev, tag)
+    print(json.dumps({"phase": "elapsed", "after": "t", "s": time.perf_counter() - t_start}),
           flush=True)
     sharded_launches = multi["sharded_eval"]["launches"]
     train_launches = trained["train"]["kernel_launches"]

@@ -1,5 +1,8 @@
 """LM training launcher: ``--arch <id>`` picks the architecture (a family
-whose batch is tokens alone: dense, MoE, ssm or hybrid), the ``lm_data``
+whose batch is tokens alone: dense, MoE, ssm or hybrid; the vlm and audio
+families, whose batches also carry patches or frames, train through the
+train step API, ``trainer.make_train_step(api.loss_fn, ...)``, as in the
+JAX package, whose launcher feeds token batches too), the ``lm_data``
 pipeline feeds it, and ``ft.Supervisor`` gives checkpoint/restart fault
 tolerance with ``--ckpt``. Counterpart of
 ``repro/launch/train.py``: the same flags, the same step lines and the same
@@ -24,7 +27,9 @@ host 0 prints and writes ``--losses-out``; with ``--ckpt`` the checkpoints
 are striped over the hosts and each writes ``hb_host{i}.json``.
 
 Sharded state: where the arch's config sets ``fsdp`` (qwen1.5-32b,
-qwen1.5-110b, llama3-405b), a multi-process launch builds
+qwen1.5-110b, llama3-405b here; llava-next-34b sets it too, and is trained
+sharded through the train step API only: ``trainer.state_specs`` and
+``make_train_step(ctx=, specs=)``), a multi-process launch builds
 ``sharding.default_rules(mesh, fsdp=True)`` on a (data = processes, model
 = 1) mesh, as JAX's launcher does, and each process keeps only its slices
 of every leaf with an ``embed`` axis (``repro_torch.distributed.fsdp``):
@@ -110,8 +115,9 @@ def launch_config(args):
 
 def state_bytes(state, specs, n_microbatch: int) -> dict:
     """This process's train state by part (the gradients: the step's, of
-    the params' shapes, f32 under microbatching), and under ``"whole"`` the
-    same parts made whole (``specs`` None: the state is whole)."""
+    the params' shapes, f32 under microbatching; the error-feedback
+    ``residual`` where the state has one), and under ``"whole"`` the same
+    parts made whole (``specs`` None: the state is whole)."""
     if specs is None:
         specs = tu.tree_map(lambda _: fsdp.WHOLE, state)
     grad_size = (lambda t: 4) if n_microbatch > 1 else (lambda t: t.element_size())
@@ -120,9 +126,12 @@ def state_bytes(state, specs, n_microbatch: int) -> dict:
         def total(tree, sp, size=lambda t: t.element_size()):
             return sum(numel(t, s) * size(t) for t, s in zip(tu.leaves(tree), tu.leaves(sp)))
 
-        return {"params": total(state.params, specs.params),
-                "grads": total(state.params, specs.params, grad_size),
-                "moments": total((state.opt.m, state.opt.v), (specs.opt.m, specs.opt.v))}
+        out = {"params": total(state.params, specs.params),
+               "grads": total(state.params, specs.params, grad_size),
+               "moments": total((state.opt.m, state.opt.v), (specs.opt.m, specs.opt.v))}
+        if state.ef is not None:
+            out["residual"] = total(state.ef.residual, specs.ef.residual)
+        return out
 
     return {**parts(lambda t, s: t.numel()), "whole": parts(fsdp.whole_numel)}
 

@@ -13,18 +13,24 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import LMConfig
+from repro_torch.distributed import fsdp
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as tfm
 
 D_VISION = 1024  # CLIP-L/14 feature width (the stub frontend's output)
 
 
-def init_params(gen: torch.Generator, cfg: LMConfig) -> dict:
-    p = tfm.init_params(gen, cfg)
-    p["mm_proj"] = {
+def init_params(gen: torch.Generator, cfg: LMConfig, specs=None) -> dict:
+    """The backbone's parameters, then the projector's. ``specs``: the
+    params' layout over the processes (``fsdp.Shard`` per leaf, from
+    :func:`param_axes`): the same draws, and only this process's slices
+    kept (the backbone a layer at a time)."""
+    p = tfm.init_params(gen, cfg, specs=specs)
+    mm = {
         "w1": L._init(gen, (D_VISION, cfg.d_model), cfg.param_dtype),
         "w2": L._init(gen, (cfg.d_model, cfg.d_model), cfg.param_dtype),
     }
+    p["mm_proj"] = mm if specs is None else fsdp.shard_tree(mm, specs["mm_proj"])
     return p
 
 
@@ -35,10 +41,14 @@ def param_axes(cfg: LMConfig) -> dict:
 
 
 def project_patches(params, patches: torch.Tensor) -> torch.Tensor:
-    """(B, P, D_VISION) stub features → (B, P, d_model) LM embeddings."""
+    """(B, P, D_VISION) stub features → (B, P, d_model) LM embeddings. In
+    the sharded train step ``params["mm_proj"]`` is an ``fsdp.Gathered``:
+    each weight is gathered where it is read here, and its gradient
+    reduce-scattered back to this process's slice."""
     p = params["mm_proj"]
-    h = L.gelu(L._mm(patches.to(p["w1"].dtype), p["w1"]))
-    return L._mm(h, p["w2"])
+    w1, w2 = p["w1"], p["w2"]  # one read each: a read of a Gathered is a gather
+    h = L.gelu(L._mm(patches.to(w1.dtype), w1))
+    return L._mm(h, w2)
 
 
 def make_loss_fn(cfg: LMConfig):

@@ -58,8 +58,9 @@ def _seeded(init_fn, cfg: LMConfig) -> Callable:
     """``init_params(seed, device=None, specs=None)`` over ``init_fn(gen,
     cfg)``; ``device="meta"`` gives the tree's shapes and dtypes without
     memory (JAX's ``eval_shape`` of ``init_params``). ``specs`` (the
-    params' layout, ``fsdp.Shard`` per leaf; the dense and MoE families'
-    ``init_fn`` take it): this process's slices, drawn a layer at a time."""
+    params' layout, ``fsdp.Shard`` per leaf; the dense, MoE and vlm
+    families' ``init_fn`` take it): this process's slices, drawn a layer at
+    a time."""
 
     def init_params(seed: int = 0, *, device=None, specs=None):
         dev = resolve_device(device)

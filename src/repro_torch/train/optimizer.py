@@ -17,7 +17,8 @@ over every process's slices, all-reduced, plus the whole leaves' counted
 once; an int8 moment whose row spans processes (the leaf split along its
 last dimension: the ``wo`` leaves and ``tok``) takes the whole row's max,
 all-reduced, as its scale, so its payload and scales are those of the
-whole leaf bit for bit.
+whole leaf bit for bit. The error-feedback compression of a sharded
+gradient (:func:`compress_tree_`) takes its rows' scales the same way.
 
 Memory: a leaf of more than ``SLICE_ELEMS`` elements is updated (and its
 share of the global norm summed) in slices along dim 0, so no more than one
@@ -256,11 +257,39 @@ def ef_init(params: Any) -> EFState:
         lambda p: torch.zeros(p.shape, dtype=_F32, device=p.device), params))
 
 
-def compress_decompress(g: torch.Tensor, res: torch.Tensor):
+def compress_decompress(g: torch.Tensor, res: torch.Tensor, row_max=None):
     """Simulated int8 all-reduce payload with error feedback: the value the
     collective would move is int8; the quantization error is carried to
-    the next step. Returns (g_hat, new_res)."""
+    the next step. Returns (g_hat, new_res). ``row_max``: as for
+    :func:`_q8_pack`, the rows' max |x| made whole where a row is split
+    over processes (a leaf split along its last dimension), so that the
+    payload, scales and residual are those of the whole leaf."""
     x = g.to(_F32) + res
-    q, scale = _q8_pack(x)
+    q, scale = _q8_pack(x, row_max)
     x_hat = _q8_unpack(q, scale)
     return x_hat, x - x_hat
+
+
+def compress_tree_(grads: Any, ef: EFState, *, splits: Any = None, ctx=None) -> Any:
+    """:func:`compress_decompress` over every leaf, in dim-0 slices (rows
+    stay whole, so the numbers are the whole leaf's): the new residual is
+    written into ``ef``'s tensors, the compressed gradient into an f32
+    gradient's own tensor (a new f32 one for a bf16 gradient). Returns the
+    compressed gradient tree. ``splits``: the leaves' layout over the
+    processes of ``ctx`` (``fsdp.Shard`` per leaf, this process's slices);
+    a leaf split along its last dimension takes each row's max over every
+    process's part of the row."""
+    leaves = tu.leaves(grads)
+    layout = [fsdp.WHOLE] * len(leaves) if splits is None else tu.leaves(splits)
+    out = []
+    for g, res, s in zip(leaves, tu.leaves(ef.residual), layout):
+        row_max = None
+        if s.split and s.dim == g.dim() - 1:
+            row_max = lambda a: fsdp.allreduce_(a, ctx, "max")  # noqa: E731
+        dst = g if g.dtype == _F32 else torch.empty(g.shape, dtype=_F32, device=g.device)
+        for sl in _slices(g):
+            g_hat, r = compress_decompress(g[sl], res[sl], row_max)
+            dst[sl].copy_(g_hat)
+            res[sl].copy_(r)
+        out.append(dst)
+    return tu.unflatten_like(grads, out)

@@ -34,8 +34,15 @@ The loss reads each split leaf through a gather (``fsdp.Gathered``), one
 layer at a time, whose backward reduce-scatters that layer's gradient as
 autograd produces it; :func:`finish_step` averages only the whole leaves'
 gradients and the loss over the hosts, and the update runs on the slices
-(``optimizer.apply_updates(splits=)``). Error-feedback compression is
-refused with sharded state.
+(``optimizer.apply_updates(splits=)``). Error-feedback compression
+(``grad_compress``) keeps its residual laid out like the parameters, as
+JAX's ``train_state_axes`` gives it the parameters' axes: each process
+compresses its slices of the split leaves' gradients as they arrive
+reduce-scattered and the whole leaves' gradients after their average
+(JAX's psum, then compress, then clip and update); a leaf split along its
+last dimension takes each row's max over the processes
+(``optimizer.compress_tree_``), so payload, scales and residual are the
+whole leaf's bit for bit.
 
 Sharding metadata: :func:`train_state_axes` gives the train state's
 logical axes (``repro_torch.distributed.sharding``); ``make_train_step``'s
@@ -65,11 +72,9 @@ def init_train_state(params, ocfg: opt.AdamWConfig, *, grad_compress: bool = Fal
                      specs: Optional[TrainState] = None):
     """The state of ``params``. ``specs`` (:func:`state_specs`): ``params``
     are this process's slices (``api.init_params(specs=specs.params)``, or
-    ``fsdp.shard_tree``), and the moments take the slices' shapes."""
+    ``fsdp.shard_tree``), and the moments and the error-feedback residual
+    take the slices' shapes."""
     if specs is not None:
-        if grad_compress:
-            raise ValueError("grad_compress with a sharded state: the error-feedback "
-                             "payload's per-row scales would need the whole rows")
         for p, s in zip(tu.leaves(params), tu.leaves(specs.params)):
             if s.split and p.shape[s.dim] != s.chunk:
                 raise ValueError(f"a param of shape {tuple(p.shape)} is not this process's "
@@ -90,14 +95,17 @@ def train_state_axes(param_axes: Any, ocfg: opt.AdamWConfig, *, grad_compress: b
     )
 
 
-def state_specs(param_axes: Any, param_shapes: Any, ocfg: opt.AdamWConfig, rules, ctx):
+def state_specs(param_axes: Any, param_shapes: Any, ocfg: opt.AdamWConfig, rules, ctx, *,
+                grad_compress: bool = False):
     """The layout of :func:`init_train_state`'s state over the processes of
     ``ctx`` under the sharding ``rules`` (``sharding.default_rules(mesh,
     fsdp=True)`` splits every ``embed`` axis): a TrainState of
-    ``fsdp.Shard``. ``param_shapes``: the params tree, ``meta`` tensors
-    will do."""
-    return fsdp.local_specs(train_state_axes(param_axes, ocfg),
-                            init_train_state(param_shapes, ocfg), rules, ctx)
+    ``fsdp.Shard``, the error-feedback residual (``grad_compress``) laid
+    out like the parameters. ``param_shapes``: the params tree, ``meta``
+    tensors will do."""
+    return fsdp.local_specs(
+        train_state_axes(param_axes, ocfg, grad_compress=grad_compress),
+        init_train_state(param_shapes, ocfg, grad_compress=grad_compress), rules, ctx)
 
 
 def _check_grad_shardings(grad_shardings: Any) -> Callable:
@@ -128,8 +136,9 @@ def _split_microbatches(batch: dict, n_mb: int) -> dict:
 # the stacked subtrees of the params trees, by top-level key, and the number
 # of leading layer axes of each: the dense, MoE, ssm and vlm families'
 # ``layers`` (L, ...), the hybrid's ``mamba`` (n_super, attn_every, ...) and
-# its ``tail`` (n_tail, ...)
-STACKED = {"layers": 1, "mamba": 2, "tail": 1}
+# its ``tail`` (n_tail, ...), the audio family's ``encoder`` and ``decoder``
+# (L, ...)
+STACKED = {"layers": 1, "mamba": 2, "tail": 1, "encoder": 1, "decoder": 1}
 
 
 def _autograd_views(params: dict, grads: dict, *, accumulate: bool, specs=None,
@@ -220,8 +229,9 @@ def make_train_step(
     Multi-controller: the gradients and the loss are averaged over the
     hosts before the update, so every host steps the same state.
 
-    ``specs``: the state's layout (:func:`state_specs`) over the processes
-    of ``ctx``'s group: the step takes and returns a sharded state.
+    ``specs``: the state's layout (:func:`state_specs`, with
+    ``grad_compress=`` as here) over the processes of ``ctx``'s group: the
+    step takes and returns a sharded state.
 
     ``grad_shardings``: the gradients' spec tree (``sharding.tree_specs``
     of the parameters' axes), checked against the parameters' structure at
@@ -236,8 +246,6 @@ def make_train_step(
         if ctx is None or ctx.backend is None:
             raise ValueError("specs= lays the state out over a job's processes: pass the "
                              "ctx= of its process group")
-        if grad_compress:
-            raise ValueError("grad_compress is refused with a sharded state (specs=)")
     split = None if specs is None else specs.params
 
     def train_step(state: TrainState, batch: dict):
@@ -256,11 +264,12 @@ def make_train_step(
 def finish_step(state: TrainState, loss, grads, ocfg: opt.AdamWConfig, *,
                 grad_compress: bool = False, ctx=None, splits=None):
     """The step after the gradients: the data-parallel average over the
-    hosts of ``ctx`` (None: one host), the error-feedback compression, the
-    clipped AdamW update written into ``state``, and the metrics. Returns
-    (new state, metrics). ``splits``: the params' layout (``fsdp.Shard``
-    per leaf); the split leaves' gradients arrive averaged, and only the
-    whole ones and the loss are averaged here."""
+    hosts of ``ctx`` (None: one host), the error-feedback compression (its
+    new residual written into ``state.ef``), the clipped AdamW update
+    written into ``state``, and the metrics. Returns (new state, metrics).
+    ``splits``: the params' layout (``fsdp.Shard`` per leaf); the split
+    leaves' gradients arrive averaged, and only the whole ones and the loss
+    are averaged here."""
     if ctx is not None:
         loss = loss.reshape(1)
         mean = tu.leaves(grads) if splits is None else [
@@ -269,10 +278,8 @@ def finish_step(state: TrainState, loss, grads, ocfg: opt.AdamWConfig, *,
         loss = loss[0]
     new_ef = None
     if grad_compress and state.ef is not None:
-        pairs = tu.tree_map(opt.compress_decompress, grads, state.ef.residual)
-        is_pair = lambda x: type(x) is tuple  # noqa: E731
-        grads = tu.tree_map(lambda pr: pr[0], pairs, is_leaf=is_pair)
-        new_ef = opt.EFState(residual=tu.tree_map(lambda pr: pr[1], pairs, is_leaf=is_pair))
+        grads = opt.compress_tree_(grads, state.ef, splits=splits, ctx=ctx)
+        new_ef = state.ef
     new_params, new_opt = opt.apply_updates(state.params, grads, state.opt, ocfg, donate=True,
                                             splits=splits, ctx=ctx)
     metrics = {

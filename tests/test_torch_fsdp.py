@@ -189,18 +189,11 @@ def test_uneven_split_pads_the_last_slice():
 
 
 def test_sharded_step_refusals():
-    """A sharded state needs a process group; error-feedback compression is
-    refused with it (ROADMAP)."""
+    """A sharded state needs a process group. (Error-feedback compression
+    with a sharded state runs: ``tests/test_torch_lm_train_modal.py``.)"""
     _, api, ocfg, specs = _port_specs(ARCH, 2, 0, True)
     with pytest.raises(ValueError, match="ctx="):
         trainer.make_train_step(api.loss_fn, ocfg, specs=specs)
-    with pytest.raises(ValueError, match="grad_compress"):
-        trainer.make_train_step(api.loss_fn, ocfg, specs=specs, grad_compress=True,
-                                ctx=runtime.DistributedContext(0, 2, backend="gloo",
-                                                               device_type="cpu"))
-    with pytest.raises(ValueError, match="grad_compress"):
-        trainer.init_train_state(api.init_params(0, device="cpu"), ocfg, grad_compress=True,
-                                 specs=specs)
 
 
 def test_launcher_keeps_the_archs_fsdp_at_the_smoke_config():
